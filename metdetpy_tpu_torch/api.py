@@ -1,0 +1,376 @@
+"""The main detection API of the port: ``detect_video``.
+
+Counterpart of ``metdetpy_tpu/api.py`` (orchestration parity with
+reference MetDetPy.py:24-250: loader -> detector -> collector loop, work
+modes, live mode, time windows, MDRF result). The BlockVideoLoader feeds
+whole ``[T, H, W]`` frame blocks through the detector's device block step;
+results are collected with one device->host copy per group of blocks.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+
+from . import get_detector, get_loader, get_wrapper, resolve_device
+from .detectors.base import BaseDetector
+from .detectors.m3det import LineDetector
+from .log import get_default_logger, set_default_logger
+from .profiling import StageTimer
+from .structs import MDRF, ClipCfg, MainDetectCfg, RuntimeParams
+from .utils import (LIVE_MODE_SPEED_CTRL_CONST, VERSION, frame2time, frame2ts,
+                    get_clip_config_path, get_num_class)
+from .visu import OpenCVMetVisu, TextColorPair, TextVisu
+
+# blocks dispatched before a deferred collection; each keeps its small
+# packed result on the device until then
+COLLECT_HORIZON = 128
+RECHECK_NOT_PORTED = (
+    "the recheck (YOLO model) comes with the deep-learning slice of the "
+    "PyTorch/CUDA port; run with recheck off (--recheck off, or "
+    "cfg.collector.recheck_cfg.switch = False)")
+
+
+def detect_video(video_name: str, mask_name: Optional[str],
+                 cfg: MainDetectCfg, debug_mode: bool = False,
+                 visual_mode: bool = False, work_mode: str = "frontend",
+                 time_range: tuple[Optional[str], Optional[str]] = (None,
+                                                                    None),
+                 live_mode: bool = False,
+                 provider_key: Optional[str] = None,
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_interval_sec: float = 60.0,
+                 resume: bool = False, device: str = "cuda") -> MDRF:
+    """Detect meteors (and other events) in a video; returns an MDRF.
+
+    ``device`` is ``"cuda"`` (the default; raises without a card) or
+    ``"cpu"``. Checkpointing and the recheck are not ported yet and
+    raise ``NotImplementedError``; ``provider_key`` only names the
+    recheck's compute provider and is unused.
+    """
+    if checkpoint_path or resume:
+        raise NotImplementedError(
+            "checkpoint/resume comes with the checkpoint slice of the "
+            "PyTorch/CUDA port")
+    if cfg.collector.recheck_cfg.switch:
+        raise NotImplementedError(RECHECK_NOT_PORTED)
+    dev = resolve_device(device)
+    set_default_logger(debug_mode, work_mode)
+    logger = get_default_logger()
+    logger.start()
+
+    try:
+        t0 = time.time()
+        LoaderCls = get_loader(cfg.loader.name)
+        WrapperCls = get_wrapper(cfg.loader.wrapper)
+        DetectorCls = get_detector(cfg.detector.name)
+        if not cfg.loader.grayscale:
+            raise ValueError("Require grayscale ON when using a "
+                             "LineDetector subclass.")
+        start_time, end_time = time_range
+        global_config = ClipCfg.from_json_file(get_clip_config_path())
+
+        video_loader = LoaderCls(
+            WrapperCls, video_name, mask_name=mask_name,
+            resize_option=cfg.loader.resize, hwaccel=cfg.loader.hwaccel,
+            start_time=start_time, end_time=end_time, grayscale=True,
+            exp_option=cfg.loader.exp_time,
+            exp_upper_bound=cfg.loader.upper_bound,
+            merge_func=cfg.loader.merge_func,
+            continue_on_err=cfg.loader.continue_on_err)
+        video_info = video_loader.summary()
+        logger.info(repr(video_loader))
+
+        start_frame = video_loader.start_frame
+        rt_param = RuntimeParams(
+            fps=video_loader.fps, exp_frame=video_loader.exp_frame,
+            eq_fps=video_loader.eq_fps, eq_int_fps=video_loader.eq_int_fps,
+            exp_time=video_loader.exp_time,
+            runtime_size=video_loader.runtime_size,
+            raw_size=video_loader.raw_size,
+            positive_category_list=(
+                global_config.export.positive_category_list))
+        logger.info(f"Preprocessing finished. Time cost: "
+                    f"{time.time() - t0:.1f}s.")
+
+        if cfg.detector.window_sec * rt_param.eq_fps < 3:
+            if video_loader.fps < 3:
+                raise ValueError(
+                    "M3Detector cannot work below 3 FPS; increase FPS or "
+                    "use the deep-learning detector (dldet.json).")
+            logger.info(f"Equivalent FPS {rt_param.eq_fps:.2f} may be too "
+                        f"slow for {DetectorCls.__name__}.")
+
+        detector: BaseDetector = DetectorCls(
+            window_sec=cfg.detector.window_sec, fps=rt_param.eq_fps,
+            mask=video_loader.mask, num_cls=get_num_class(),
+            cfg=cfg.detector.cfg, logger=logger, device=dev)
+
+        from .track.collector import MeteorCollector
+        collector = MeteorCollector(cfg.collector, rt_param,
+                                    video_loader=None, logger=logger)
+
+        visual_manager = OpenCVMetVisu(exp_time=rt_param.exp_time,
+                                       resolution=video_loader.runtime_size,
+                                       flag=visual_mode)
+    except Exception as e:
+        logger.error(repr(e))
+        logger.error("Fatal error occured when initializing.")
+        logger.stop()
+        raise e
+
+    timer = StageTimer()
+    t1 = time.time()
+    try:
+        video_loader.start()
+        _run_block_loop(video_loader, detector, collector, rt_param,
+                        start_frame, work_mode, live_mode, visual_mode,
+                        visual_manager, logger, t0, timer=timer)
+        if not visual_manager.manual_stop:
+            logger.info("VideoLoader-stop detected.")
+    except Exception as e:
+        logger.error(repr(e))
+        raise e
+    finally:
+        video_loader.release()
+        collector.clear()
+        visual_manager.stop()
+        logger.info("Time cost: %.4fs." % (time.time() - t1))
+        timer.log_summary(logger)
+        logger.stop()
+
+    perf = {k: v for k, v in timer.summary().items()}
+    # decode-thread stage accounting, so consumers can decompose
+    # decode_wait into host work
+    for k, v in getattr(video_loader, "stage_stats", {}).items():
+        perf[f"loader_{k}"] = round(v, 4) if isinstance(v, float) else v
+    return MDRF(version=VERSION, basic_info=video_info, config=cfg,
+                type="prediction", anno_size=video_info.resolution,
+                results=collector.met_exporter.meteor_list,
+                performance=perf)
+
+
+def _zero_results(detector, n_real):
+    return [(np.zeros((0, 4), int),
+             np.zeros((0, detector.num_cls)))] * n_real
+
+
+def _run_block_loop(video_loader, detector: LineDetector, collector,
+                    rt_param, start_frame, work_mode, live_mode,
+                    visual_mode, visual_manager, logger, t0,
+                    timer=None) -> None:
+    # One block shape per run: the tail block is padded by repeating its
+    # last frame and the padded positions' results are dropped.
+    # Each block is uploaded and its device step enqueued on the main
+    # thread; the results are read back either per block by worker
+    # threads (incremental mode: live and visual runs) or for a whole
+    # horizon of blocks at once (deferred mode, the default).
+    import collections
+    import os as _os
+    from concurrent.futures import ThreadPoolExecutor
+
+    if timer is None:
+        timer = StageTimer()
+    merged_idx = 0
+    e = rt_param.exp_frame
+    eq_int_fps = max(rt_param.eq_int_fps, 1)
+    block_frames = getattr(video_loader, "block_frames", 64)
+    pipeline_depth = int(_os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6))
+    executor = ThreadPoolExecutor(max_workers=pipeline_depth)
+    inflight: "collections.deque" = collections.deque()
+
+    # device_epoch tags each dispatched block with the device-state
+    # generation it was issued under; a reset bumps it so that failures
+    # of blocks dispatched BEFORE the reset (poisoned by the same fault)
+    # are zero-filled without counting toward the consecutive-failure
+    # abort limit.
+    device_epoch = 0
+
+    def dispatch(raw_block, submit=True):
+        """Pad, upload and enqueue the device step for one block. With
+        submit=False (deferred collection) the raw handle is returned
+        instead of a collect future. The upload copies the block before
+        process_block_async returns, so the loader may reuse its buffer."""
+        n_real = raw_block.shape[0]
+        if n_real < block_frames:
+            pad = np.repeat(raw_block[-1:], block_frames - n_real, axis=0)
+            blk = np.concatenate([raw_block, pad], axis=0)
+        else:
+            blk = raw_block
+        handle = detector.process_block_async(blk)
+        if not submit:
+            return handle, blk, n_real, device_epoch
+        fut = executor.submit(detector.collect, handle)
+        return fut, blk, n_real, device_epoch
+
+    progress = None
+    if work_mode == "frontend":
+        try:
+            import tqdm
+            total = max(video_loader.iterations // e, 0)
+            progress = tqdm.tqdm(total=total, ncols=100, unit="frame")
+        except ImportError:
+            pass
+
+    consecutive_failures = 0
+
+    def recover(exc, epoch, n_real, what):
+        """Device failure recovery: drop the block's results, reset the
+        detector's device state (window/EMA warmup restarts; collector
+        history is host-side and survives) and keep going. Failures of
+        blocks dispatched before the last reset are zero-filled without
+        counting; three consecutive post-reset failures abort."""
+        nonlocal consecutive_failures, device_epoch
+        if epoch < device_epoch:
+            logger.warning(f"{exc!r} on a pre-reset inflight block; "
+                           f"dropped.")
+        else:
+            consecutive_failures += 1
+            logger.error(
+                f"{exc!r} while {what} a frame block; resetting device "
+                f"state and continuing ({consecutive_failures} "
+                f"consecutive failure(s)).")
+            if consecutive_failures >= 3:
+                raise exc
+            detector.reset_device_state()
+            device_epoch += 1
+        return _zero_results(detector, n_real)
+
+    def consume(entry):
+        nonlocal consecutive_failures
+        fut, block, n_real, epoch = entry
+        try:
+            with timer.stage("collect"):
+                results = fut.result()[:n_real]
+            consecutive_failures = 0
+        except Exception as exc:
+            results = recover(exc, epoch, n_real, "processing")
+        timer.add_frames(n_real * e)
+        if progress is not None:
+            progress.update(n_real)
+        return emit_results(results, block, heartbeat=True)
+
+    def emit_results(results, block, heartbeat):
+        """Feed one block's per-frame results through the collector (and
+        visu/live pacing); shared by the incremental and deferred paths.
+        With heartbeat=False the Processing log lines are assumed to have
+        been emitted at dispatch time."""
+        nonlocal merged_idx
+        for j, (lines, cates) in enumerate(results):
+            i = start_frame + merged_idx * e
+            if (heartbeat and work_mode == "backend"
+                    and merged_idx % eq_int_fps == 0):
+                logger.processing(str(frame2time(i, rt_param.fps)))
+            if len(lines) or merged_idx % eq_int_fps == 0:
+                with timer.stage("collector_update"):
+                    collector.update(i, lines=lines, cates=cates)
+            if visual_mode:
+                visu_info = [TextVisu(
+                    "timestamp",
+                    text_list=[TextColorPair(frame2ts(i, rt_param.fps))],
+                    position="left-bottom", color="white")]
+                visu_info.extend(detector.visu())
+                visu_info.extend(collector.visu(frame_num=i))
+                visual_manager.display_a_frame(block[j], visu_info)
+                if visual_manager.manual_stop:
+                    logger.info("Manual interrupt signal detected.")
+                    return False
+            merged_idx += 1
+        if live_mode:
+            expect = (merged_idx * e / rt_param.fps
+                      ) * LIVE_MODE_SPEED_CTRL_CONST
+            elapsed = time.time() - t0
+            if elapsed < expect:
+                time.sleep(expect - elapsed)
+        return True
+
+    # Deferred collection (default for offline block runs): dispatch every
+    # block of a horizon without any device->host read, then collect the
+    # horizon with one stacked copy per group (detector.collect_many).
+    # Live mode needs pacing and visual mode per-block host frames, so
+    # both keep the incremental path. Override with
+    # METDETPY_TPU_DEFERRED_COLLECT=0.
+    deferred_env = _os.environ.get("METDETPY_TPU_DEFERRED_COLLECT")
+    deferred = not live_mode and not visual_mode and deferred_env != "0"
+    logger.debug(
+        f"Deferred collection: {'on' if deferred else 'off'} "
+        f"({'env override' if deferred_env is not None else 'default'})")
+    pending: list = []
+    dispatched_merged = 0
+
+    def flush_deferred():
+        """Collect every pending handle (one copy per group), then emit in
+        order. On a horizon-collect failure, fall back to per-block
+        collection with the same epoch-tagged recovery as the incremental
+        path."""
+        nonlocal consecutive_failures
+        if not pending:
+            return True
+        entries = list(pending)
+        pending.clear()
+        try:
+            with timer.stage("collect"):
+                many = detector.collect_many([en[0] for en in entries])
+            consecutive_failures = 0
+        except Exception as exc:
+            logger.error(f"{exc!r} during horizon collect "
+                         f"({len(entries)} blocks); falling back to "
+                         f"per-block collection.")
+            many = []
+            for handle, n_real, epoch in entries:
+                try:
+                    with timer.stage("collect"):
+                        many.append(detector.collect(handle))
+                    consecutive_failures = 0
+                except Exception as exc2:
+                    many.append(recover(exc2, epoch, n_real, "collecting"))
+        for (handle, n_real, epoch), results in zip(entries, many):
+            timer.add_frames(n_real * e)
+            if progress is not None:
+                progress.update(n_real)
+            if emit_results(results[:n_real], None,
+                            heartbeat=False) is False:
+                return False
+        return True
+
+    stopped = False
+    try:
+        while not stopped:
+            with timer.stage("decode_wait"):
+                raw_block = video_loader.pop_block()
+            if raw_block is None:
+                break
+            if deferred:
+                with timer.stage("dispatch"):
+                    handle, _blk, n_real, epoch = dispatch(raw_block,
+                                                           submit=False)
+                handle = detector.handle_slim(handle)
+                if work_mode == "backend":
+                    # heartbeat at dispatch granularity (results arrive
+                    # in a burst at the horizon collect)
+                    logger.processing(str(frame2time(
+                        start_frame + dispatched_merged * e,
+                        rt_param.fps)))
+                dispatched_merged += n_real
+                pending.append((handle, n_real, epoch))
+                if len(pending) >= COLLECT_HORIZON and not flush_deferred():
+                    stopped = True
+            else:
+                with timer.stage("dispatch"):
+                    inflight.append(dispatch(raw_block))
+                while len(inflight) >= pipeline_depth:
+                    if consume(inflight.popleft()) is False:
+                        stopped = True
+                        break
+        if not stopped and deferred:
+            stopped = flush_deferred() is False
+        while inflight and not stopped:
+            if consume(inflight.popleft()) is False:
+                break
+    finally:
+        executor.shutdown(wait=True)
+        if progress is not None:
+            progress.close()
+

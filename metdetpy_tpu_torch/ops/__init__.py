@@ -1,0 +1,3 @@
+"""Device-side (PyTorch/CUDA) compute of MetDetPy-TPU's port: the M3
+path's filters, window statistics, Hough extraction and the four
+hand-written CUDA kernels (``kernels``)."""

@@ -1,0 +1,126 @@
+"""Batched sliding-window statistics over frame blocks (plain PyTorch).
+
+Counterpart of ``metdetpy_tpu/ops/windows.py``. A whole block of T frames
+is processed at once with the previous n-1 frames carried in as history
+(the reference's per-frame ``SlidingWindow`` ring buffer,
+MetLib/utils.py:225-321).
+
+torch has few uint32 ops, so the rolling sums are taken in int32/int64,
+which is exact for uint8 inputs. Warmup semantics match the reference:
+during the first n-1 frames the mean divides by ``length = min(n, timer)``
+and the integer mean is ``sum // length``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class WindowStats(NamedTuple):
+    """Per-frame-position window statistics for a block of T frames."""
+    win_max: torch.Tensor   # [T, H, W] uint8: max over the trailing window
+    win_mean: torch.Tensor  # [T, H, W] uint8: integer mean (sum // length)
+    diff: torch.Tensor      # [T, H, W] uint8: win_max - win_mean (>= 0)
+
+
+def _seq(history: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+    return torch.cat([history, frames], dim=0)
+
+
+def _new_history(seq: torch.Tensor, history: torch.Tensor, t_block: int,
+                 n: int) -> torch.Tensor:
+    return seq[t_block:].clone() if n > 1 else history
+
+
+def _rolling_sum(seq: torch.Tensor, n: int, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """Trailing n-window sums, 'valid' extent: [n-1+T, ...] -> [T, ...]."""
+    cs = torch.cumsum(seq.to(dtype), dim=0, dtype=dtype)
+    out = cs[n - 1:].clone()
+    out[1:] -= cs[:-n]
+    return out
+
+
+def window_lengths(timer0: int, t_block: int, n: int,
+                   device: torch.device) -> torch.Tensor:
+    """[T] int64 warmup-aware window lengths min(n, timer0 + 1 + t)."""
+    timers = torch.arange(t_block, device=device, dtype=torch.int64)
+    return torch.clamp(timers + (timer0 + 1), max=n)
+
+
+def window_stats(history: torch.Tensor, frames: torch.Tensor, n: int,
+                 timer0: int) -> tuple[WindowStats, torch.Tensor]:
+    """Trailing-window max/mean for each frame position in a block.
+
+    Args:
+      history: [n-1, H, W] uint8, the n-1 frames preceding this block.
+      frames: [T, H, W] uint8 block of new (exposure-merged) frames.
+      n: window size in merged frames.
+      timer0: frames consumed before this block.
+
+    Returns:
+      (WindowStats, new_history [n-1, H, W]).
+    """
+    t_block = frames.shape[0]
+    seq = _seq(history, frames)
+    win_max = seq.unfold(0, n, 1).amax(dim=-1)
+    win_sum = _rolling_sum(seq, n, torch.int32)
+    lengths = window_lengths(timer0, t_block, n, frames.device)
+    win_mean = torch.div(win_sum, lengths.to(torch.int32)[:, None, None],
+                         rounding_mode="floor").to(torch.uint8)
+    diff = win_max - win_mean  # max >= mean element-wise, no wraparound
+    return (WindowStats(win_max, win_mean, diff),
+            _new_history(seq, history, t_block, n))
+
+
+def window_noise_std(history: torch.Tensor, frames: torch.Tensor, n: int,
+                     timer0: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position std of the sub-ROI window around its integer mean.
+
+    With rolling sums S1 = sum(x), S2 = sum(x^2) and m = S1 // length,
+    the per-pixel sum of squared deviations S2 - 2*m*S1 + length*m^2 is an
+    integer, so it is formed and summed over the frame in int64 exactly.
+    The JAX package forms the same integers in f32 (exact below 2^24) but
+    sums them in f32 in XLA's order, so the two agree exactly while the
+    frame sum stays below 2^24 and to f32 rounding (rtol 1e-6) above it.
+    Then var = sum / (length * h * w) and std = sqrt(max(var, 0)) in f32.
+
+    Returns:
+      (stds [T] float32, new_history).
+    """
+    t_block = frames.shape[0]
+    seq = _seq(history, frames)
+    s1 = _rolling_sum(seq, n, torch.int64)
+    s2 = _rolling_sum(seq.to(torch.int64) ** 2, n, torch.int64)
+    lengths = window_lengths(timer0, t_block, n, frames.device)
+    len3 = lengths[:, None, None]
+    m = torch.div(s1, len3, rounding_mode="floor")
+    ssd = s2 - 2 * m * s1 + len3 * m * m
+    total = ssd.sum(dim=(1, 2)).to(torch.float32)
+    denom = lengths.to(torch.float32) * frames.shape[1] * frames.shape[2]
+    var = total / denom
+    stds = torch.sqrt(torch.clamp(var, min=0.0))
+    return stds, _new_history(seq, history, t_block, n)
+
+
+def rolling_sum_u32(history: torch.Tensor, frames: torch.Tensor,
+                    n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rolling window sum (int32, exact for uint8 input) over a block,
+    carrying history. Used for the dynamic-mask response window
+    (reference MetLib/Detector.py:234-242)."""
+    t_block = frames.shape[0]
+    seq = _seq(history, frames)
+    return (_rolling_sum(seq, n, torch.int32),
+            _new_history(seq, history, t_block, n))
+
+
+def merge_exposure_max(frames: torch.Tensor, exp_frame: int) -> torch.Tensor:
+    """Merge consecutive exp_frame raw frames by per-pixel max:
+    [T*e, H, W] -> [T, H, W] (reference MergeFunction.max)."""
+    if exp_frame == 1:
+        return frames
+    t, h, w = frames.shape
+    assert t % exp_frame == 0, "frame count must be a multiple of exp_frame"
+    return frames.reshape(t // exp_frame, exp_frame, h, w).amax(dim=1)

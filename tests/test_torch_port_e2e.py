@@ -1,0 +1,166 @@
+"""PyTorch port end to end on the CPU: ``detect_video`` against the JAX
+package, the CLI, failure recovery, and the port's independence from JAX.
+
+The port's MDRF on the synthetic clip of ``tests/test_e2e_detect.py`` must
+equal the JAX package's: same records, categories, frames and points.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from metdetpy_tpu.api import detect_video as jax_detect_video
+from metdetpy_tpu.structs import MainDetectCfg
+from metdetpy_tpu.synth import SynthMeteor, generate_meteor_video, write_video
+from metdetpy_tpu.utils import relative2abs_path
+from metdetpy_tpu_torch.__main__ import main as cli_main
+from metdetpy_tpu_torch.api import detect_video
+from metdetpy_tpu_torch.detectors.m3det import M3Detector
+from metdetpy_tpu_torch.structs import MainDetectCfg as TMainDetectCfg
+
+# the tensors here are small: two threads run them fastest and leave the
+# host's other cores to the other test workers
+torch.set_num_threads(2)
+
+W, H, FPS = 256, 144, 25.0
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def synth_frames():
+    meteor = SynthMeteor(start_sec=2.4, end_sec=4.4,
+                         pt1=(int(W * 0.45), int(H * 0.25)),
+                         pt2=(int(W * 0.30), int(H * 0.55)))
+    return generate_meteor_video(width=W, height=H, fps=FPS,
+                                 duration_sec=6.5, meteors=[meteor],
+                                 n_stars=40, noise_sigma=3.0)
+
+
+def _cfg(cls):
+    cfg = cls.from_json_file(relative2abs_path("./config/m3det_normal.json"))
+    cfg.loader.name = "BlockVideoLoader"
+    cfg.loader.wrapper = "NumpyVideoWrapper"
+    cfg.loader.resize = None
+    cfg.loader.exp_time = "real-time"
+    cfg.collector.recheck_cfg.switch = False
+    return cfg
+
+
+def _meteors(mdrf):
+    return [t for rec in mdrf.results for t in rec.target
+            if t.category == "METEOR"]
+
+
+def test_mdrf_matches_jax(synth_frames, monkeypatch):
+    monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
+    want = jax_detect_video(synth_frames, None, _cfg(MainDetectCfg),
+                            work_mode="backend")
+    got = detect_video(synth_frames, None, _cfg(TMainDetectCfg),
+                       work_mode="backend", device="cpu")
+    assert _meteors(want)
+    assert ([r.to_dict() for r in got.results]
+            == [r.to_dict() for r in want.results])
+
+
+def test_device_failure_recovery(synth_frames, monkeypatch):
+    """A fault while collecting the first block resets the detector's
+    device state once; the meteor in a later block is still found."""
+    monkeypatch.setenv("METDETPY_TPU_DEFERRED_COLLECT", "0")
+    monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
+    orig_collect = M3Detector.collect
+    orig_reset = M3Detector.reset_device_state
+    state = {"calls": 0, "resets": 0}
+
+    def flaky_collect(self, handle):
+        state["calls"] += 1
+        if state["calls"] == 1:
+            raise RuntimeError("injected device fault")
+        return orig_collect(self, handle)
+
+    def counting_reset(self):
+        state["resets"] += 1
+        return orig_reset(self)
+
+    monkeypatch.setattr(M3Detector, "collect", flaky_collect)
+    monkeypatch.setattr(M3Detector, "reset_device_state", counting_reset)
+    mdrf = detect_video(synth_frames, None, _cfg(TMainDetectCfg),
+                        work_mode="backend", device="cpu")
+    assert state["resets"] == 1
+    assert _meteors(mdrf), "meteor lost after recovered fault"
+
+
+def test_unported_options_raise(synth_frames):
+    cfg = _cfg(TMainDetectCfg)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        detect_video(synth_frames, None, cfg, checkpoint_path="x.ckpt",
+                     device="cpu")
+    cfg.collector.recheck_cfg.switch = True
+    with pytest.raises(NotImplementedError, match="recheck"):
+        detect_video(synth_frames, None, cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def video_file(synth_frames, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("video") / "synth.avi")
+    write_video(synth_frames[50:100], path, fps=FPS)
+    return path
+
+
+def test_cli_refuses_recheck_on(video_file, capsys):
+    """The default preset switches the recheck on; the CLI stops and says
+    so instead of switching it off."""
+    with pytest.raises(SystemExit) as exc:
+        cli_main([video_file, "--device", "cpu"])
+    assert exc.value.code != 0
+    assert "recheck" in capsys.readouterr().err
+
+
+def test_cli_writes_mdrf(video_file, tmp_path, monkeypatch):
+    monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
+    out = str(tmp_path / "out.json")
+    cli_main([video_file, "--recheck", "off", "--device", "cpu",
+              "--mode", "backend", "--exp-time", "real-time",
+              "--resize", "256", "--save-path", out])
+    with open(out, encoding="utf-8") as f:
+        mdrf = json.load(f)
+    assert mdrf["type"] == "prediction"
+    assert mdrf["basic_info"]["resolution"] == [W, H]
+    assert isinstance(mdrf["results"], list)
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    """Importing every module of the port and chip_smoke loads no jax
+    module and nothing of the JAX package (``metdetpy_tpu`` or
+    ``metdetpy_tpu.*``; ``metdetpy_tpu_torch`` shares the prefix)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "before = set(sys.modules)\n"
+        "import metdetpy_tpu_torch, metdetpy_tpu_torch.api, chip_smoke\n"
+        "for m in pkgutil.walk_packages(metdetpy_tpu_torch.__path__,\n"
+        "                               'metdetpy_tpu_torch.'):\n"
+        "    if not m.name.endswith('.libmetring'):  # the built C library\n"
+        "        importlib.import_module(m.name)\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'jaxlib' or m.startswith('jaxlib.')\n"
+        "             or m == 'metdetpy_tpu'\n"
+        "             or m.startswith('metdetpy_tpu.'))\n"
+        "print(len(new), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_refuses_without_card():
+    """chip_smoke.py exits non-zero and prints no result without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal path is not reachable")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
