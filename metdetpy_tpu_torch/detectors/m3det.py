@@ -390,7 +390,9 @@ class M3Detector(LineDetector):
     def process_block_async(self, block) -> Any:
         """``block``: [T, H, W] uint8, a numpy array (uploaded here; the
         copy completes before this returns, so the caller may reuse it) or
-        a tensor already on the detector's device."""
+        a tensor already on the detector's device, which the caller must
+        not write to afterwards (the detector may keep its last frames as a
+        view for the next block's window)."""
         if isinstance(block, np.ndarray):
             block = torch.from_numpy(block).to(self.device)
         (packed, dst, self._gray_hist, self._sub_hist, self._dy_hist,

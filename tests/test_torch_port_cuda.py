@@ -80,6 +80,69 @@ def test_kernel_on_card_matches_plain(cuda_device, name):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+# ragged shapes of the two streaming kernels: (h, w, n, T, timer0, offset);
+# offset 1 hands the kernel a contiguous input whose data pointer is not
+# 16-byte aligned
+WINDOW_DIFF_CASES = [
+    (540, 960, 25, 64, 10, 0), (540, 960, 25, 64, 0, 0),
+    (37, 150, 1, 64, 0, 0), (37, 150, 2, 1, 0, 0), (2, 961, 25, 64, 5, 0),
+    (1, 3, 60, 64, 0, 0), (1, 1, 100, 1, 0, 0), (37, 150, 100, 64, 10**6, 0),
+    (2, 960, 60, 1, 10**6, 0), (540, 960, 100, 1, 0, 0),
+    (37, 960, 25, 64, 3, 1), (2, 150, 2, 64, 10**6, 1),
+]
+# (T, h, w, offset)
+MEDIAN_CASES = [
+    (64, 540, 960, 0), (5, 37, 150, 0), (3, 1, 1, 0), (3, 2, 3, 0),
+    (2, 540, 961, 0), (4, 37, 960, 0), (3, 2, 150, 0), (2, 1, 960, 0),
+    (2, 540, 1, 0), (2, 37, 960, 1), (3, 37, 150, 1),
+]
+
+
+def _on_card(a, dev, offset):
+    """A contiguous card tensor holding ``a``, starting ``offset`` bytes
+    into its storage."""
+    flat = torch.empty(a.size + offset, dtype=torch.uint8, device=dev)
+    view = flat[offset:].view(a.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n,t_block,timer0,offset", WINDOW_DIFF_CASES)
+def test_window_diff_on_card_ragged(cuda_device, h, w, n, t_block, timer0,
+                                    offset):
+    rng = np.random.default_rng([SEED, h, w, n, t_block])
+    history = _on_card(rng.integers(0, 256, (n - 1, h, w), dtype=np.uint8),
+                       cuda_device, offset)
+    frames = _on_card(rng.integers(0, 256, (t_block, h, w), dtype=np.uint8),
+                      cuda_device, offset)
+    kernels.reset_launch_counts()
+    diff, new_hist = kernels.window_diff(history, frames, n, timer0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_diff"] == 1
+    want, want_hist = kernels.window_diff_plain(history, frames, n, timer0)
+    assert torch.equal(diff, want) and torch.equal(new_hist, want_hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_block,h,w,offset", MEDIAN_CASES)
+def test_median_binarize_close_on_card_ragged(cuda_device, t_block, h, w,
+                                              offset):
+    rng = np.random.default_rng([SEED, t_block, h, w])
+    diff = rng.integers(0, 30, (t_block, h, w), dtype=np.uint8)
+    diff[rng.random(diff.shape) < 0.01] = 255
+    thr = rng.integers(2, 12, t_block, dtype=np.uint8)
+    thr[0], thr[-1] = 0, 255
+    diff = _on_card(diff, cuda_device, offset)
+    thr = torch.from_numpy(thr).to(cuda_device)
+    kernels.reset_launch_counts()
+    got = kernels.median_binarize_close(diff, thr)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["median_binarize_close"] == 1
+    assert torch.equal(got, kernels.median_binarize_close_plain(diff, thr))
+
+
 @pytest.mark.cuda
 def test_mdrf_on_card_equals_cpu(cuda_device):
     w, h = 256, 144

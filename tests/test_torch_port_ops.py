@@ -13,6 +13,7 @@ The kernels themselves run only on a card; their tests are in
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -239,3 +240,20 @@ def test_wrappers_take_plain_version_only_on_cpu(nrng):
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.median_binarize_close(diff.to("meta"), thr.to("meta"))
+
+
+def test_kernel_library_name_hashes_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name changes with its source and with any
+    ``.cuh`` header of ``csrc/``, so editing a shared header rebuilds."""
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(kernels, "_CSRC", str(tmp_path))
+    first = kernels._lib_path("k.cu")
+    assert first == kernels._lib_path("k.cu")
+    header.write_text("// two\n")
+    second = kernels._lib_path("k.cu")
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edit\n')
+    third = kernels._lib_path("k.cu")
+    assert len({first, second, third}) == 3
+    assert os.path.basename(third).startswith("k-")
