@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Build: print the card's name and power limit, build the four CUDA
-   kernels of the M3 path from ``metdetpy_tpu_torch/csrc``.
+   kernels of the M3 path from ``metdetpy_tpu_torch/csrc`` and print what
+   ``ptxas`` reports for each (registers, shared memory, spills).
 2. Kernels: call each kernel's wrapper on the card at the shapes the main
    path gives it (960x540 frames, 64-frame blocks, window n=25, 8-frame
    Hough chunks of 8192 points and 64 peaks), inputs made from a seed, and
@@ -13,7 +14,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    inputs (the outputs are integers). Times both with CUDA events: the
    kernel warm (the same inputs each launch, so they may stay in the L2
    cache) and cold (launches rotate through copies of the inputs whose
-   bytes exceed twice the L2, so each launch reads device memory).
+   bytes exceed twice the L2, so each launch reads device memory). The
+   vote is also held and timed on a raster-ordered point list (a streak
+   and salt noise, compacted as the main path compacts them), where
+   neighbours in the list share rho bins; the pick is timed beside an
+   empty kernel of its grid. Then the ragged cases of
+   ``metdetpy_tpu_torch.ops.kernel_cases`` for both, exact, untimed.
 3. End to end: a 960x540, 25 fps, 12 s synthetic clip with one meteor
    through ``metdetpy_tpu_torch.api.detect_video(..., device="cuda")``
    with the m3det_normal preset (recheck off). Requires a METEOR near the
@@ -141,6 +147,32 @@ def kernel_inputs(dev: torch.device):
     return wd, (diff, thr), vote, pick, counts, geom
 
 
+def raster_vote_input(dev: torch.device):
+    """A Hough chunk as the main path makes it: 960x540 binary frames with
+    a dilated streak and about 1% salt noise each, compacted in raster
+    order by ``hough.compact_indices`` (``hough_lines_batch`` does the
+    same), so consecutive points are neighbours on a row or the streak."""
+    from metdetpy_tpu_torch.ops import hough
+    rng = np.random.default_rng(SEED + 1)
+    mask = rng.random((FRAME_CHUNK, H, W)) < 0.01
+    steps = np.linspace(0.0, 1.0, 400)
+    for f in range(FRAME_CHUNK):
+        x0, y0 = rng.integers(100, W - 100), rng.integers(100, H - 100)
+        ang = rng.uniform(0, np.pi)
+        px = np.clip(x0 + 250 * np.cos(ang) * (steps - 0.5), 1, W - 2)
+        py = np.clip(y0 + 250 * np.sin(ang) * (steps - 0.5), 1, H - 2)
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                mask[f, (py + dy).astype(int), (px + dx).astype(int)] = True
+    flats = torch.from_numpy(mask.astype(np.uint8)).to(dev).reshape(
+        FRAME_CHUNK, -1)
+    idx, valid = hough.compact_indices(flats, MAX_POINTS)
+    idx = torch.where(valid, idx, 0)
+    ys = torch.div(idx, W, rounding_mode="floor").to(torch.float32)
+    xs = (idx % W).to(torch.float32)
+    return (xs, ys, valid, hough._round_up(2 * (W + H) + 1, 128), W + H)
+
+
 def kernel_cases(dev: torch.device) -> dict:
     """{name: (wrapper, plain version, main-path args, source, TPU kernel,
     (bound ms, bound by))} for each kernel."""
@@ -172,38 +204,57 @@ def kernel_cases(dev: torch.device) -> dict:
         "hough_vote": (
             K.hough_vote, K.hough_vote_plain, vote,
             "metdetpy_tpu_torch/csrc/hough_vote.cu", f"{PALLAS}:505",
-            # points in (x, y f32 + valid byte); 180 x n_rho i32 out per
-            # frame; fma + mul + add per (valid point, theta)
+            # points in (x, y f32 + valid byte, 9 bytes each); 180 x n_rho
+            # i32 out per frame; fma + mul + add per (valid point, theta)
             bound(FRAME_CHUNK * MAX_POINTS * 9
                   + FRAME_CHUNK * 180 * vote[3] * 4, n_valid * 180 * 3)),
         "walk_pick": (
             K.walk_pick, K.walk_pick_plain, pick,
             "metdetpy_tpu_torch/csrc/walk_pick.cu", f"{PALLAS}:402",
-            # r in (i32) + xmaj + the plane bytes picked; i32 out
+            # r in (i32) + xmaj (a byte per peak) + one plane byte per
+            # column whose row lies in the plane; i32 out; no arithmetic
             bound(pick[1].numel() * 4 + pick[2].numel() + n_pick
                   + pick[1].numel() * 4, 0)),
     }
 
 
+def check_exact(name: str, kern, plain, args) -> float:
+    """Fail unless ``kern(*args)`` equals ``plain(*args)`` exactly; returns
+    the largest absolute difference (0.0)."""
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{name}: kernel gives {g.dtype}{tuple(g.shape)}, plain "
+                 f"{w.dtype}{tuple(w.shape)}")
+        n_bad = int((g != w).sum())
+        if n_bad:
+            fail(f"{name}: {n_bad} elements differ from the plain "
+                 "version (exact equality required)")
+    return max(float((g.double() - w.double()).abs().max()) if g.numel()
+               else 0.0 for g, w in zip(got, want))
+
+
+def raster_vote_times(dev: torch.device) -> dict:
+    """The vote on the raster-ordered list: exact, then warm and cold ms."""
+    from metdetpy_tpu_torch.ops import kernels as K
+    args = raster_vote_input(dev)
+    check_exact("hough_vote (raster-ordered)", K.hough_vote,
+                K.hough_vote_plain, args)
+    return {"raster_ms": cuda_ms(lambda: K.hough_vote(*args), 20),
+            "raster_cold_ms": cold_ms(K.hough_vote, args),
+            "raster_valid_points": int(args[2].sum())}
+
+
 def phase_kernels(dev: torch.device) -> dict:
     """Each kernel against its plain version, exact, with times."""
+    from metdetpy_tpu_torch.ops import kernels as K
     rows = {}
     for name, (kern, plain, args, src, tpu, (b_ms, b_by)) in kernel_cases(
             dev).items():
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                fail(f"{name}: kernel gives {g.dtype}{tuple(g.shape)}, plain "
-                     f"{w.dtype}{tuple(w.shape)}")
-            n_bad = int((g != w).sum())
-            if n_bad:
-                fail(f"{name}: {n_bad} elements differ from the plain "
-                     "version (exact equality required)")
-        err = max(float((g.double() - w.double()).abs().max())
-                  for g, w in zip(got, want))
+        err = check_exact(name, kern, plain, args)
         rows[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": None, "max_abs_err": err,
@@ -215,7 +266,34 @@ def phase_kernels(dev: torch.device) -> dict:
               f"{rows[name]['cold_ms']:.4f} ms cold (plain "
               f"{rows[name]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
               f"{b_by})", flush=True)
+        if name == "hough_vote":
+            rows[name].update(raster_vote_times(dev))
+            print(f"kernel {name}, raster-ordered list of "
+                  f"{rows[name]['raster_valid_points']} points: exact; "
+                  f"{rows[name]['raster_ms']:.4f} ms warm, "
+                  f"{rows[name]['raster_cold_ms']:.4f} ms cold", flush=True)
+        if name == "walk_pick":
+            rows[name]["floor_ms"] = cuda_ms(
+                lambda: K.walk_pick_floor(*args), 20)
+            print(f"kernel {name}: an empty kernel of its grid takes "
+                  f"{rows[name]['floor_ms']:.4f} ms (bound {b_ms:.4f} ms)",
+                  flush=True)
     return rows
+
+
+def phase_ragged(dev: torch.device) -> None:
+    """hough_vote and walk_pick against their plain versions on the ragged
+    cases, exact."""
+    from metdetpy_tpu_torch.ops import kernel_cases as C
+    from metdetpy_tpu_torch.ops import kernels as K
+    for case in C.VOTE_CASES:
+        check_exact(f"hough_vote case {case[0]}", K.hough_vote,
+                    K.hough_vote_plain, C.vote_case(case, dev, SEED))
+    for case in C.PICK_CASES:
+        check_exact(f"walk_pick case {case[0]}", K.walk_pick,
+                    K.walk_pick_plain, C.pick_case(case, dev, SEED))
+    print(f"ragged cases: {len(C.VOTE_CASES)} of hough_vote and "
+          f"{len(C.PICK_CASES)} of walk_pick exact", flush=True)
 
 
 def m3_cfg(resize):
@@ -317,7 +395,11 @@ def main() -> None:
                 info = [ln.strip() for ln in f if "Used" in ln or
                         "spill" in ln]
             print(f"ptxas {name}: {' | '.join(info)}", flush=True)
+            if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                   "loads" not in ln for ln in info):
+                fail(f"{name}: ptxas reports register spills")
     rows = phase_kernels(dev)
+    phase_ragged(dev)
     launches = phase_end_to_end(card)
     phase_card_vs_cpu()
     for name, row in rows.items():

@@ -13,11 +13,14 @@ The kernels (``csrc/*.cu``) are compiled for ``sm_90a`` at first use, one
 ``nvcc`` process per source, all started together, into shared libraries
 with a plain C interface under ``csrc/build/`` (keyed by a hash of the
 source and flags) and bound with ``ctypes``. Each C entry point launches
-on the caller's stream and returns ``cudaGetLastError()``.
+on the caller's stream and returns ``cudaGetLastError()``. ``variant``
+swaps in a build of one source with extra ``-D`` flags, for timing a
+kernel at other sizes than the package builds it with.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,10 +50,15 @@ SOURCES = {
                               "mdt_median_binarize_close",
                               [_P, _P, _P, _I, _I, _I, _P]),
     "hough_vote": ("hough_vote.cu", "mdt_hough_vote",
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "walk_pick": ("walk_pick.cu", "mdt_walk_pick",
                   [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
+# every C entry point bound: the kernels, and the empty kernel on
+# walk_pick's grid that walk_pick_floor launches
+ENTRIES = {**SOURCES,
+           "walk_pick_floor": ("walk_pick.cu", "mdt_walk_pick_floor",
+                               SOURCES["walk_pick"][2])}
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -74,10 +82,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _lib_path(src: str) -> str:
-    """The library built from ``src``, named by a hash of the flags, the
-    source and every header of ``csrc/`` (so editing either rebuilds)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(src: str, defines: tuple = ()) -> str:
+    """The library built from ``src`` with the extra flags ``defines``,
+    named by a hash of the flags, the source and every header of ``csrc/``
+    (so editing either rebuilds)."""
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
     for name in (src, *headers):
         with open(os.path.join(_CSRC, name), "rb") as f:
@@ -86,43 +95,72 @@ def _lib_path(src: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
 
 
+def _compile(todo) -> None:
+    """One nvcc per (source, defines) of ``todo`` whose library is not
+    built yet, all started together. Raises with nvcc's output if a build
+    fails. The ``-Xptxas -v`` report of each build (registers, shared
+    memory, spills) is kept beside its library as ``.log``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for src, defines in todo:
+        out = _lib_path(src, defines)
+        if os.path.isfile(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        log = open(os.path.splitext(out)[0] + ".log", "w")
+        procs.append((src, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp,
+             os.path.join(_CSRC, src)],
+            stdout=log, stderr=subprocess.STDOUT), tmp, out, log))
+    failed = []
+    for src, proc, tmp, out, log in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                failed.append(f"{src} (rc={rc}):\n{f.read()}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+
+
+def _bind(name: str, defines: tuple = ()):
+    src, sym, argtypes = ENTRIES[name]
+    fn = getattr(ctypes.CDLL(_lib_path(src, defines)), sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def build_kernels() -> dict:
     """Compile every kernel source not yet built (in parallel) and bind
-    them. Returns {name: ctypes function}. Raises with nvcc's output if a
-    build fails. The ``-Xptxas -v`` report of each build (registers,
-    shared memory, spills) is kept beside its library as ``.log``."""
+    its entry points. Returns {name: ctypes function}."""
     with _BUILD_LOCK:
-        if len(_LIBS) == len(SOURCES):
-            return _LIBS
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = {}
-        for name, (src, _, _) in SOURCES.items():
-            out = _lib_path(src)
-            if os.path.isfile(out):
-                continue
-            tmp = f"{out}.{os.getpid()}.tmp"
-            log = open(os.path.splitext(out)[0] + ".log", "w")
-            procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)],
-                stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
-        failed = []
-        for name, (proc, tmp, out, log) in procs.items():
-            rc = proc.wait()
-            log.close()
-            if rc != 0:
-                with open(log.name) as f:
-                    failed.append(f"{name} (rc={rc}):\n{f.read()}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n"
-                               + "\n".join(failed))
-        for name, (src, sym, argtypes) in SOURCES.items():
-            fn = getattr(ctypes.CDLL(_lib_path(src)), sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _LIBS[name] = fn
+        if len(_LIBS) < len(ENTRIES):
+            _compile({(src, ()) for src, _, _ in ENTRIES.values()})
+            for name in ENTRIES:
+                _LIBS[name] = _bind(name)
         return _LIBS
+
+
+@contextlib.contextmanager
+def variant(name: str, defines):
+    """Within the block, the entry points of kernel ``name``'s source come
+    from a build with the extra nvcc flags ``defines`` (such as
+    ``["-DHV_THETAS=6"]``): how ``tools/torch_kernel_variants.py`` times a
+    kernel at the sizes its source takes as ``-D`` flags."""
+    libs = build_kernels()
+    src, defines = SOURCES[name][0], tuple(defines)
+    with _BUILD_LOCK:
+        _compile([(src, defines)])
+    kept = dict(libs)
+    libs.update({e: _bind(e, defines) for e, (s, _, _) in ENTRIES.items()
+                 if s == src})
+    try:
+        yield
+    finally:
+        libs.update(kept)
 
 
 def _launch(name: str, ref: torch.Tensor, *args) -> None:
@@ -133,7 +171,8 @@ def _launch(name: str, ref: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    if name in LAUNCHES:
+        LAUNCHES[name] += 1
 
 
 def _on_card(x: torch.Tensor, name: str) -> bool:
@@ -257,17 +296,46 @@ def median_binarize_close(diff: torch.Tensor,
 #
 # Replaces metdetpy_tpu/ops/pallas_kernels.py::hough_vote_pallas (:505,
 # kernel _vote_kernel :465). Bound by bytes: the [T, 180, n_rho] i32 vote
-# array it writes dwarfs the point list it reads. One block per (frame,
-# 4-theta chunk) counts into a shared-memory histogram with integer
-# atomicAdd (order-independent, so exact) and stores it coalesced; the
-# point list is re-read from L2 by each theta chunk. rho is
-# __fadd_rn(__fmaf_rn(c, x, __fmul_rn(s, y)), off), the contraction XLA's
-# CPU backend applies to cos*x + sin*y + off, then rintf and a clip.
+# array it writes (17.7 MB for 8 frames at n_rho 3072) dwarfs the point
+# list it reads (9 bytes a point, 0.59 MB): 0.0055 ms at 3.35 TB/s; the 3
+# float operations per (valid point, theta) take 0.0003 ms at 67 T/s. On
+# the card it is held by those stores and by shared memory: a vote is one
+# access to a random bank. About one persistent block per SM takes one
+# frame and a run of thetas. Its threads hold the frame's points in
+# registers (8 each, read once), each pass of up to 4 thetas counts into
+# one of two shared histograms with integer atomicAdd (order-independent,
+# so exact), and between the votes of the next pass, which go to the other
+# histogram, each thread drains its words of the finished one (atomicExch
+# reads and zeroes a word in one access) to `votes` with plain coalesced
+# stores. rho is __fadd_rn(__fmaf_rn(c, x, __fmul_rn(s, y)), off), the
+# contraction XLA's CPU backend applies to cos*x + sin*y + off, then rintf
+# and a clip.
 
 
-# 4 theta histograms of n_rho int32 in the 227 KB of shared memory a block
-# may use (csrc/hough_vote.cu THETAS)
-MAX_VOTE_RHO = 232448 // (4 * 4)
+# shared memory a block may use, less the kernel's copy of the cos/sin tables
+# (1440 bytes, up to the next multiple of 128)
+VOTE_SMEM = 232448 - 1536
+VOTE_THETAS = 4      # most thetas per pass (csrc/hough_vote.cu HV_THETAS)
+VOTE_ROUND = 8192    # points a block holds in registers at a time
+# two histograms of one theta at least
+MAX_VOTE_RHO = VOTE_SMEM // 8
+
+_SM_COUNT: dict = {}
+
+
+def vote_plan(t: int, n_rho: int, n_sm: int) -> tuple[int, int]:
+    """Launch plan of the vote kernel: (blocks per frame, thetas per pass).
+
+    About one block per SM: each frame's 180 thetas are split into
+    ``n_sm // t`` runs (block g takes thetas [g*180//groups,
+    (g+1)*180//groups)), and a block works through its run in passes of as
+    many thetas, up to VOTE_THETAS, as two histograms of them fit in its
+    shared memory."""
+    if not 1 <= n_rho <= MAX_VOTE_RHO:
+        raise ValueError(f"hough_vote: n_rho={n_rho} needs more shared "
+                         f"memory than a block has (max {MAX_VOTE_RHO})")
+    groups = max(1, min(180, n_sm // max(t, 1)))
+    return groups, min(VOTE_THETAS, VOTE_SMEM // (8 * n_rho))
 
 
 def hough_vote_plain(xs: torch.Tensor, ys: torch.Tensor, valid: torch.Tensor,
@@ -296,14 +364,15 @@ def hough_vote(xs: torch.Tensor, ys: torch.Tensor, valid: torch.Tensor,
     _check("hough_vote", xs, torch.float32, dev)
     _check("hough_vote", ys, torch.float32, dev, (t, n))
     _check("hough_vote", valid, torch.bool, dev, (t, n))
-    if n_rho > MAX_VOTE_RHO:
-        raise ValueError(f"hough_vote: n_rho={n_rho} needs more shared "
-                         f"memory than a block has (max {MAX_VOTE_RHO})")
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    plan = vote_plan(t, n_rho, _SM_COUNT[dev])
     cos_t, sin_t = trig_tables(dev)
     votes = torch.empty((t, 180, n_rho), dtype=torch.int32, device=dev)
     _launch("hough_vote", xs, xs.data_ptr(), ys.data_ptr(), valid.data_ptr(),
             cos_t.data_ptr(), sin_t.data_ptr(), votes.data_ptr(), t, n,
-            n_rho, rho_offset)
+            n_rho, rho_offset, *plan)
     return votes
 
 
@@ -311,10 +380,17 @@ def hough_vote(xs: torch.Tensor, ys: torch.Tensor, valid: torch.Tensor,
 #
 # Replaces metdetpy_tpu/ops/pallas_kernels.py::walk_pick_pallas (:402,
 # kernel _walk_pick_kernel :357 with _pick_row_bands :331). Bound by bytes:
-# the [T, K, S] i32 output plus the plane rows the walks touch. One thread
-# per (frame, peak, column) does one direct indexed u8 load; a row outside
-# [0, S) gives 0, so the kernel equals the one-hot form on every column.
-# The one-hot reduction and the row bands existed only for the TPU.
+# r read and the [T, K, S] i32 output written (2.1 MB each at T=8, K=64,
+# S=1024), xmaj and one plane byte per in-range column: 0.0013 ms at
+# 3.35 TB/s; an empty kernel of the same grid takes longer than that
+# (walk_pick_floor), and the kernel is that launch plus two dependent trips
+# to memory. One block per (frame, peak) row, so no thread divides and xmaj
+# and the plane base are read once per block; a thread takes 4 adjacent
+# columns (r in and picks out as 16-byte words, the plane bytes through the
+# read-only path), or one column where S % 4 != 0 or a pointer is not
+# 16-byte aligned. A row
+# outside [0, S) gives 0, so the kernel equals the one-hot form on every
+# column. The one-hot reduction and the row bands existed only for the TPU.
 
 
 def walk_pick_plain(planes: torch.Tensor, r: torch.Tensor,
@@ -349,3 +425,12 @@ def walk_pick(planes: torch.Tensor, r: torch.Tensor,
     _launch("walk_pick", planes, planes.data_ptr(), r.data_ptr(),
             xmaj.data_ptr(), out.data_ptr(), t, k, s)
     return out
+
+
+def walk_pick_floor(planes: torch.Tensor, r: torch.Tensor,
+                    xmaj: torch.Tensor) -> None:
+    """Launch an empty kernel on the grid ``walk_pick`` takes for these
+    card tensors: timed, it is the least any kernel of that grid costs."""
+    t, k, s = r.shape
+    _launch("walk_pick_floor", planes, planes.data_ptr(), r.data_ptr(),
+            xmaj.data_ptr(), 0, t, k, s)

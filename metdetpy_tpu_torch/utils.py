@@ -3,7 +3,7 @@ registry, sigma-clipping and box matching.
 
 Behavior parity with reference MetLib/utils.py (cited per function); all
 implementations are fresh and numpy-based. Device-side math lives in
-``metdetpy_tpu.ops``.
+``metdetpy_tpu_torch.ops``.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def set_resource_dir(resource_dir: Optional[str]) -> None:
 def get_resource_dir() -> str:
     if _resource_dir_override:
         return _resource_dir_override
-    # package lives at <workspace>/metdetpy_tpu/utils.py
+    # package lives at <workspace>/metdetpy_tpu_torch/utils.py
     return path.dirname(path.dirname(path.abspath(__file__)))
 
 

@@ -15,6 +15,8 @@ import torch
 
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.ops import hough, kernels
+from metdetpy_tpu_torch.ops.kernel_cases import (PICK_CASES, VOTE_CASES,
+                                                 pick_case, vote_case)
 from metdetpy_tpu_torch.structs import MainDetectCfg
 from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
 from metdetpy_tpu_torch.utils import relative2abs_path
@@ -141,6 +143,44 @@ def test_median_binarize_close_on_card_ragged(cuda_device, t_block, h, w,
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["median_binarize_close"] == 1
     assert torch.equal(got, kernels.median_binarize_close_plain(diff, thr))
+
+
+# VOTE_CASES and PICK_CASES (ops/kernel_cases.py): odd and long point lists,
+# none or one bin's worth of valid points, n_rho from 128 to the largest,
+# T = 1 and 64, K = 1..64, S = 128..1024, rows all outside the plane, inputs
+# 4 bytes into their storage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VOTE_CASES, ids=[c[0] for c in VOTE_CASES])
+def test_hough_vote_on_card_ragged(cuda_device, case):
+    args = vote_case(case, cuda_device, SEED)
+    kernels.reset_launch_counts()
+    got = kernels.hough_vote(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hough_vote"] == 1
+    want = kernels.hough_vote_plain(*args)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PICK_CASES, ids=[c[0] for c in PICK_CASES])
+def test_walk_pick_on_card_ragged(cuda_device, case):
+    args = pick_case(case, cuda_device, SEED)
+    kernels.reset_launch_counts()
+    got = kernels.walk_pick(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["walk_pick"] == 1
+    want = kernels.walk_pick_plain(*args)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_hough_vote_refuses_too_many_rho_bins(cuda_device):
+    args = vote_case(("n100", 1, 100, kernels.MAX_VOTE_RHO + 1, "prefix", 0),
+                     cuda_device, SEED)
+    with pytest.raises(ValueError):
+        kernels.hough_vote(*args)
 
 
 @pytest.mark.cuda

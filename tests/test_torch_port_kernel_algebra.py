@@ -1,13 +1,14 @@
-"""PyTorch port: the arithmetic the CUDA kernels of ``csrc/window_diff.cu``
-and ``csrc/median_binarize_close.cu`` rely on, modelled here in numpy and
-held exactly against the plain versions on the CPU.
+"""PyTorch port: the arithmetic and the index maps the CUDA kernels of
+``csrc/*.cu`` rely on, modelled here in numpy and held exactly against the
+plain versions on the CPU.
 
 The kernels themselves run only on a card (``tests/test_torch_port_cuda.py``);
 these models repeat their algebra step by step -- the thresholded median as
 a majority count, the close as OR/AND of shifted rows, the van Herk window
-max over a ring of frames, the reciprocal floor mean and the byte permutes
-and packed-lane tricks -- so that a wrong identity fails here, without a
-card.
+max over a ring of frames, the reciprocal floor mean, the byte permutes and
+packed-lane tricks, the vote's theta runs, passes, rounds of points and
+drain, and the pick's thread-to-column map -- so that a wrong identity
+fails here, without a card.
 """
 
 import numpy as np
@@ -323,3 +324,277 @@ def test_sub_bytes_and_mean_packing(nrng):
                        byte_perm(q[2], q[3], 0x0040), 0x5410)
     want = sum((q[i] & np.uint64(255)) << np.uint64(8 * i) for i in range(4))
     np.testing.assert_array_equal(packed, want)
+
+
+# -- (f) hough_vote.cu: theta runs, passes, rounds of points, drain -----------
+#
+# The kernel's launch geometry, modelled on the CPU with small sizes: a block
+# takes one frame and the theta run [g*180//G, (g+1)*180//G), works through
+# it in passes of th_pass thetas into two histograms in turn, holds the
+# points in per-thread slots (slot k of thread (warp, lane) is point
+# (warp + k*warps)*32 + lane of a round), and drains a finished histogram
+# word by word (thread tid takes words tid, tid + threads, ...), leaving it
+# zero.
+
+
+def theta_runs(groups: int) -> list:
+    return [(g * 180 // groups, (g + 1) * 180 // groups)
+            for g in range(groups)]
+
+
+def slot_points(m: int, threads: int, pts: int) -> np.ndarray:
+    """[threads, pts] point index of each slot of a round of m points, -1
+    where the slot is past the end."""
+    warps = threads // 32
+    tid = np.arange(threads)
+    lane, warp = tid % 32, tid // 32
+    i = (warp[:, None] + np.arange(pts)[None, :] * warps) * 32 + lane[:, None]
+    return np.where(i < m, i, -1)
+
+
+def rho_bins(xs, ys, n_rho: int, off: int) -> np.ndarray:
+    """[T, 180, N] bins, with the plain version's arithmetic."""
+    from metdetpy_tpu_torch.ops.f32 import fma_f32, trig_tables
+    cos_t, sin_t = trig_tables(torch.device("cpu"))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    rho = fma_f32(cos_t[None, :, None], x[:, None, :],
+                  sin_t[None, :, None] * y[:, None, :]) + float(off)
+    return torch.clamp(torch.round(rho).to(torch.int64), 0,
+                       n_rho - 1).numpy()
+
+
+def vote_model(xs, ys, valid, n_rho, off, groups, th_pass, threads=64,
+               pts=2, aggregate=False) -> np.ndarray:
+    """hough_vote.cu block by block. aggregate: the counts of a warp's 32
+    points are merged per bin before they are added (HV_MATCH)."""
+    t_block, n = xs.shape
+    q_all = rho_bins(xs, ys, n_rho, off)
+    votes = np.full((t_block, 180, n_rho), -7, np.int64)   # all overwritten
+    round_pts = threads * pts
+    for t in range(t_block):
+        for th0, th1 in theta_runs(groups):
+            hist = np.zeros((2, th_pass * n_rho), np.int64)
+            drain = None                        # (buffer, first theta, count)
+
+            def run_drain():
+                buf, c0, th = drain
+                words = np.arange(th * n_rho)
+                # thread tid takes words tid + j*threads: each word once
+                owner = words % threads
+                assert np.bincount(owner, minlength=threads).sum() == len(
+                    words)
+                votes[t, c0:c0 + th] = hist[buf, words].reshape(th, n_rho)
+                hist[buf, words] = 0
+
+            for p, c0 in enumerate(range(th0, th1, th_pass)):
+                th = min(th_pass, th1 - c0)
+                h = hist[p & 1]
+                assert not h.any()              # clean when its pass begins
+                for r0 in range(0, n, round_pts):
+                    idx = slot_points(min(round_pts, n - r0), threads, pts)
+                    for k in range(pts):
+                        for w in range(threads // 32):
+                            i = idx[w * 32:(w + 1) * 32, k]
+                            i = i[i >= 0] + r0
+                            i = i[valid[t, i]]
+                            # the missing thetas of a short last pass vote
+                            # into rows that are never stored
+                            for j in range(th_pass):
+                                c = min(c0 + j, 179)
+                                bins = q_all[t, c, i] + j * n_rho
+                                if aggregate:
+                                    b, cnt = np.unique(bins,
+                                                       return_counts=True)
+                                    h[b] += cnt
+                                else:
+                                    np.add.at(h, bins, 1)
+                if drain is not None:
+                    run_drain()                 # between this pass's votes
+                drain = (p & 1, c0, th)
+            if drain is not None:
+                run_drain()
+    return votes
+
+
+def raster_points(rng, t_block, n, w=96, h=54, density=0.05):
+    """Compacted raster-ordered points of random masks with a streak."""
+    xs = np.zeros((t_block, n), np.float32)
+    ys = np.zeros((t_block, n), np.float32)
+    valid = np.zeros((t_block, n), bool)
+    for t in range(t_block):
+        mask = rng.random((h, w)) < density
+        d = np.arange(min(h, w) - 4)
+        mask[d + 2, d + 2] = mask[d + 3, d + 2] = True
+        yy, xx = np.nonzero(mask)
+        m = min(n, len(xx)) if t != 1 else 0    # frame 1 is empty
+        xs[t, :m], ys[t, :m], valid[t, :m] = xx[:m], yy[:m], True
+    return xs, ys, valid
+
+
+@pytest.mark.parametrize("aggregate", [False, True])
+@pytest.mark.parametrize("order", ["random", "raster"])
+@pytest.mark.parametrize("groups,th_pass,n", [(3, 4, 200), (16, 4, 128),
+                                               (45, 3, 77), (7, 1, 130)])
+def test_vote_by_runs_passes_and_rounds_equals_plain(nrng, aggregate, order,
+                                                     groups, th_pass, n):
+    """Voting per theta run in passes of th_pass thetas, the points walked
+    in rounds of 128 held in per-thread slots, counts added one by one or
+    merged per (warp of 32 consecutive points, bin), and each pass drained
+    out of its histogram == hough_vote_plain; with partial and empty
+    frames."""
+    t_block, w, h = 3, 96, 54
+    n_rho, off = 384, w + h
+    if order == "raster":
+        xs, ys, valid = raster_points(nrng, t_block, n, w, h)
+    else:
+        xs = nrng.integers(0, w, (t_block, n)).astype(np.float32)
+        ys = nrng.integers(0, h, (t_block, n)).astype(np.float32)
+        valid = np.arange(n)[None, :] < np.array([n, 0, n // 3])[:, None]
+    got = vote_model(xs, ys, valid, n_rho, off, groups, th_pass,
+                     aggregate=aggregate)
+    want = kernels.hough_vote_plain(
+        torch.from_numpy(xs), torch.from_numpy(ys), torch.from_numpy(valid),
+        n_rho, off)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("n_sm", [1, 16, 108, 132, 144, 1000])
+def test_theta_runs_cover_each_theta_once(n_sm):
+    """For every block count the plan can choose (any T, any SM count) the
+    runs [g*180//G, (g+1)*180//G) are disjoint, in order, non-empty and
+    cover 0..179; cut into passes of 1..4 thetas they still do."""
+    for t_block in range(1, 260):
+        groups, th_pass = kernels.vote_plan(t_block, 3072, n_sm)
+        assert 1 <= groups <= 180 and groups * t_block <= max(n_sm, t_block)
+        runs = theta_runs(groups)
+        assert runs[0][0] == 0 and runs[-1][1] == 180
+        assert all(a < b for a, b in runs)
+        assert all(runs[i][1] == runs[i + 1][0] for i in range(groups - 1))
+        for th in range(1, th_pass + 1):
+            seen = [c for a, b in runs for c0 in range(a, b, th)
+                    for c in range(c0, min(c0 + th, b))]
+            assert seen == list(range(180))
+
+
+@pytest.mark.parametrize("n_rho", [1, 128, 3072, 6016, 7219, 7220, 14000,
+                                   kernels.MAX_VOTE_RHO])
+def test_vote_plan_fits_shared_memory(n_rho):
+    """Two histograms of th_pass thetas fit the block's shared memory, with
+    as many thetas (up to VOTE_THETAS) as fit; above MAX_VOTE_RHO the plan
+    refuses."""
+    _, th_pass = kernels.vote_plan(8, n_rho, 132)
+    assert 1 <= th_pass <= kernels.VOTE_THETAS
+    assert 8 * th_pass * n_rho <= kernels.VOTE_SMEM
+    assert (th_pass == kernels.VOTE_THETAS
+            or 8 * (th_pass + 1) * n_rho > kernels.VOTE_SMEM)
+    with pytest.raises(ValueError):
+        kernels.vote_plan(8, kernels.MAX_VOTE_RHO + 1, 132)
+
+
+@pytest.mark.parametrize("m", [0, 1, 31, 32, 100, 8191, 8192])
+def test_point_slots_cover_a_round_once(m):
+    """Slot k of thread (warp, lane) holds point (warp + k*warps)*32 + lane:
+    over 1024 threads of 8 slots every point of a round of m <= 8192 lies
+    in exactly one slot, and a warp's slot holds 32 consecutive points."""
+    idx = slot_points(m, 1024, 8)
+    held = np.sort(idx[idx >= 0])
+    np.testing.assert_array_equal(held, np.arange(m))
+    assert 1024 * 8 == kernels.VOTE_ROUND
+    by_warp = idx.reshape(32, 32, 8)          # [warp, lane, slot]
+    full = (by_warp >= 0).all(1)              # [warp, slot]
+    run = by_warp - by_warp[:, :1, :]
+    np.testing.assert_array_equal(
+        run.transpose(0, 2, 1)[full],
+        np.broadcast_to(np.arange(32), (int(full.sum()), 32)))
+
+
+@pytest.mark.parametrize("end", [0, 1, 1023, 1024, 4097, 12288, 12289])
+@pytest.mark.parametrize("step_words", [1, 2, 4])
+def test_drain_steps_take_each_word_once(end, step_words):
+    """A drain step of thread tid takes words at + q*threads (q <
+    step_words, at = tid + step*step_words*threads) below end: over all
+    threads and steps every word of [0, end) exactly once."""
+    threads = 1024
+    taken = []
+    for tid in range(0, threads):
+        at = tid
+        while at < end:
+            taken += [at + q * threads for q in range(step_words)
+                      if at + q * threads < end]
+            at += step_words * threads
+    assert sorted(taken) == list(range(end))
+
+
+# -- (g) walk_pick.cu: (block, thread, column-of-4) -> (t, k, c) -------------
+
+
+def pick_model(planes, r, xmaj, cols=4):
+    """walk_pick.cu: block tk = frame*K + peak, thread x takes columns
+    x*cols .. x*cols + cols - 1 and strides by blockDim*cols; the vector
+    path where S % cols == 0, else one column per thread."""
+    t_block, k, s = r.shape
+    per = cols if s % cols == 0 else 1
+    threads = min(1024, -(-(-(-s // per)) // 32) * 32)
+    out = np.full((t_block, k, s), -7, np.int64)
+    flat_r, flat_out = r.reshape(-1), out.reshape(-1)
+    for tk in range(t_block * k):
+        t = tk // k
+        plane = planes[t, 0 if xmaj.reshape(-1)[tk] else 1]
+        for x in range(threads):
+            for c in range(x * per, s, threads * per):
+                for j in range(per):
+                    row = int(flat_r[tk * s + c + j])
+                    inside = 0 <= row < s
+                    assert flat_out[tk * s + c + j] == -7    # written once
+                    flat_out[tk * s + c + j] = (plane[row, c + j]
+                                                if inside else 0)
+    return out
+
+
+@pytest.mark.parametrize("t_block,k,s", [(2, 1, 128), (1, 5, 256),
+                                         (3, 7, 384), (1, 2, 1152),
+                                         (1, 1, 4224), (2, 3, 200),
+                                         (1, 3, 130)])
+def test_pick_index_map_equals_flat_index(nrng, t_block, k, s):
+    """The pick's (block, thread, column of 4) map writes every (t, k, c)
+    once, for ragged K, every kind of S (multiples of 128 up to beyond
+    1024 threads * 4 columns, and sizes that take the one-column path), and
+    equals walk_pick_plain, rows outside [0, S) giving 0."""
+    planes = nrng.integers(0, 16, (t_block, 2, s, s), dtype=np.uint8)
+    r = nrng.integers(-(s // 4), s + s // 4, (t_block, k, s)).astype(np.int32)
+    r[0, 0, :7] = [-1, s, s - 1, 0, -2 ** 31, 2 ** 31 - 1, s + 1]
+    xmaj = nrng.random((t_block, k)) < 0.5
+    want = kernels.walk_pick_plain(torch.from_numpy(planes),
+                                   torch.from_numpy(r),
+                                   torch.from_numpy(xmaj)).numpy()
+    np.testing.assert_array_equal(pick_model(planes, r, xmaj), want)
+    outside = (r < 0) | (r >= s)
+    assert not want[outside].any()
+
+
+@pytest.mark.parametrize("fill", ["negative", "beyond"])
+def test_pick_rows_outside_the_plane_give_zero(nrng, fill):
+    from metdetpy_tpu_torch.ops import kernel_cases
+    case = next(c for c in kernel_cases.PICK_CASES if c[4] == fill)
+    planes, r, xmaj = kernel_cases.pick_case(case, "cpu", SEED)
+    assert not kernels.walk_pick(planes, r, xmaj).any()
+
+
+def test_kernel_case_lists_run_on_the_cpu():
+    """Every ragged case of ops/kernel_cases.py builds its inputs (with the
+    storage offset asked for) and goes through the wrappers' CPU path; the
+    large ones are only built at a reduced size here."""
+    from metdetpy_tpu_torch.ops import kernel_cases as C
+    for case in C.VOTE_CASES:
+        name, t, n, n_rho, fill, offset = case
+        small = (name, min(t, 2), min(n, 300), min(n_rho, 512), fill, offset)
+        xs, ys, valid, n_rho, off = C.vote_case(small, "cpu", SEED)
+        assert xs.is_contiguous() and xs.storage_offset() * 4 == offset
+        votes = kernels.hough_vote(xs, ys, valid, n_rho, off)
+        assert int(votes.sum()) == 180 * int(valid.sum())
+    for case in C.PICK_CASES:
+        name, t, k, s, fill, offset = case
+        small = (name, min(t, 2), min(k, 3), min(s, 256), fill, offset)
+        planes, r, xmaj = C.pick_case(small, "cpu", SEED)
+        assert r.is_contiguous() and r.storage_offset() * 4 == offset
+        assert kernels.walk_pick(planes, r, xmaj).shape == r.shape
