@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Build: print the card's name and power limit, build the four CUDA
-   kernels of the M3 path from ``metdetpy_tpu_torch/csrc`` and print what
-   ``ptxas`` reports for each (registers, shared memory, spills).
+   kernels from ``metdetpy_tpu_torch/csrc`` and print what ``ptxas``
+   reports for each (registers, shared memory, spills).
 2. Kernels: call each kernel's wrapper on the card at the shapes the main
    path gives it (960x540 frames, 64-frame blocks, window n=25, 8-frame
    Hough chunks of 8192 points and 64 peaks), inputs made from a seed, and
@@ -20,12 +20,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    neighbours in the list share rho bins; the pick is timed beside an
    empty kernel of its grid. Then the ragged cases of
    ``metdetpy_tpu_torch.ops.kernel_cases`` for both, exact, untimed.
-3. End to end: a 960x540, 25 fps, 12 s synthetic clip with one meteor
-   through ``metdetpy_tpu_torch.api.detect_video(..., device="cuda")``
-   with the m3det_normal preset (recheck off). Requires a METEOR near the
-   streak and every kernel launched by that run.
+3. End to end: a 960x540, 25 fps, 12 s synthetic colour clip with one
+   meteor through ``metdetpy_tpu_torch.api.detect_video(..., device="cuda")``
+   with the m3det_normal preset as shipped, recheck on (only the frame
+   source is the in-memory wrapper and the exposure is real-time). Requires
+   a METEOR near the streak that carries a recheck score, every kernel
+   launched by that run, at least one forward of the recheck model, no
+   block dropped by the loop's failure recovery, and as many forwards of
+   the network as the warm-up plus two pyramid levels a recheck (a level
+   that raises is not counted, and ends the run).
 4. Card against CPU: the MDRF of a small clip on the card equals the one
-   the port gives on the CPU.
+   the port gives on the CPU (recheck off, so the comparison is exact).
+5. Model: YOLOv5s with the shipped weights on the card in bfloat16 on 128
+   crops of 320x320; the heads of 4 crops against the port's own float32
+   run on the CPU (99% of the values within 5% of the head's standard
+   deviation, none beyond 50%); ``_nms_batch`` and ``_compact_kept_device``
+   on the card equal to the CPU (exact) and ``_orient_from_packed`` (``ok``
+   exact, sums rtol 1e-4 with atol 1e-4 of the weight total); device ms of
+   the forward, the NMS and the orientation per block.
+6. dldet: ``detect_video`` with ``config/dldet.json`` as shipped (in-memory
+   frame source) on a 960x544 colour synthetic clip played over and over:
+   2 blocks first (start-up), then 12 blocks (1536 and 9216 raw frames),
+   frames per second of each, the same health checks as in phase 3; and
+   on a small clip the card's records against the CPU's (category and
+   frames equal, points within 2 px, scores within 0.03).
+7. Classic: ``ClassicDetector`` through ``detect_video`` at 960x540 (its
+   point budget there is 64,800) with ``hough_vote`` and ``walk_pick``
+   launched, and on a small clip the card's MDRF equal to the CPU's.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. It imports nothing
@@ -296,37 +317,97 @@ def phase_ragged(dev: torch.device) -> None:
           f"{len(C.PICK_CASES)} of walk_pick exact", flush=True)
 
 
-def m3_cfg(resize):
+def preset_cfg(preset: str, resize="shipped", recheck=True, detector=None):
+    """A shipped preset on an in-memory clip: the frame source becomes the
+    numpy wrapper; the M3 presets' exposure becomes real-time (their "auto"
+    estimates it from a video file). ``resize``, ``recheck=False`` and
+    ``detector`` override the preset where a phase says so."""
     from metdetpy_tpu_torch.structs import MainDetectCfg
     from metdetpy_tpu_torch.utils import relative2abs_path
     cfg = MainDetectCfg.from_json_file(
-        relative2abs_path("./config/m3det_normal.json"))
+        relative2abs_path(f"./config/{preset}.json"))
     cfg.loader.wrapper = "NumpyVideoWrapper"
-    cfg.loader.resize = resize
-    cfg.loader.exp_time = "real-time"
-    cfg.collector.recheck_cfg.switch = False
+    if resize != "shipped":
+        cfg.loader.resize = resize
+    if cfg.loader.grayscale:
+        cfg.loader.exp_time = "real-time"
+    if not recheck:
+        cfg.collector.recheck_cfg.switch = False
+    if detector:
+        cfg.detector.name = detector
     return cfg
+
+
+def synth_clip(w: int, h: int, seconds: float, t0: float, t1: float,
+               color: bool, n_stars: int = 150, seed: int = SEED):
+    """(frames, pt1, pt2): a synthetic sky with one meteor from t0 to t1."""
+    from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
+    pt1, pt2 = (int(w * 0.45), int(h * 0.25)), (int(w * 0.30), int(h * 0.55))
+    frames = generate_meteor_video(
+        width=w, height=h, fps=FPS, duration_sec=seconds,
+        meteors=[SynthMeteor(start_sec=t0, end_sec=t1, pt1=pt1, pt2=pt2)],
+        n_stars=n_stars, noise_sigma=3.0, seed=seed, color=color)
+    return frames, pt1, pt2
+
+
+class CycledFrames:
+    """A [T, H, W, C] clip played over and over for ``n_frames`` frames as
+    an in-memory frame source, without the copies (``NumpyVideoWrapper`` reads ``dtype``,
+    ``ndim``, ``shape`` and single frames or slices)."""
+
+    def __init__(self, clip: np.ndarray, n_frames: int) -> None:
+        self.clip = clip
+        self.dtype, self.ndim = clip.dtype, clip.ndim
+        self.shape = (n_frames, *clip.shape[1:])
+
+    def __getitem__(self, i):
+        n = self.clip.shape[0]
+        if isinstance(i, slice):
+            return np.stack([self.clip[j % n]
+                             for j in range(*i.indices(self.shape[0]))])
+        if not 0 <= i < self.shape[0]:
+            raise IndexError(i)
+        return self.clip[i % n]
+
+    def __repr__(self) -> str:
+        return f"CycledFrames[{'x'.join(map(str, self.shape))}]"
+
+
+def check_healthy_run(name: str, mdrf, model_cfgs, levels_run: int) -> None:
+    """Fail if the run dropped a block, or if the network's forwards are
+    not the models' warm-ups plus every pyramid level that was asked for
+    (``levels_run``): a level that raised is not counted by the model."""
+    from metdetpy_tpu_torch.models import yolo
+    dropped = mdrf.performance["recovered_blocks"]
+    if dropped:
+        fail(f"{name}: {dropped} block(s) were dropped by the loop's "
+             "failure recovery")
+    want = sum(int(m.warmup) for m in model_cfgs) + levels_run
+    if yolo.CALLS["network"] != want:
+        fail(f"{name}: {yolo.CALLS['network']} network forwards, expected "
+             f"{want} (warm-ups plus {levels_run} pyramid levels)")
 
 
 def phase_end_to_end(card: str) -> dict:
     """The main path at full width; returns the launch counts of its run."""
     from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.models import yolo
     from metdetpy_tpu_torch.ops import kernels as K
-    from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
     from metdetpy_tpu_torch.utils import ts2frame
-    pt1, pt2 = (int(W * 0.45), int(H * 0.25)), (int(W * 0.30), int(H * 0.55))
-    frames = generate_meteor_video(
-        width=W, height=H, fps=FPS, duration_sec=12.0,
-        meteors=[SynthMeteor(start_sec=5.0, end_sec=7.0, pt1=pt1, pt2=pt2)],
-        n_stars=150, noise_sigma=3.0, seed=SEED)
-    cfg = m3_cfg(960)
+    frames, pt1, pt2 = synth_clip(W, H, 12.0, 5.0, 7.0, color=True)
+    cfg = preset_cfg("m3det_normal")
+    if not cfg.collector.recheck_cfg.switch:
+        fail("m3det_normal as shipped has the recheck on; the preset read "
+             "here has it off")
     K.reset_launch_counts()
+    yolo.CALLS.clear()
     t0 = time.perf_counter()
     mdrf = detect_video(frames, None, cfg, work_mode="backend",
                         device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    rechecks = yolo.CALLS["forward"]
     meteors = [t for rec in mdrf.results for t in rec.target
                if t.category == "METEOR"]
     if not meteors:
@@ -343,28 +424,32 @@ def phase_end_to_end(card: str) -> dict:
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
+    if rechecks < 1:
+        fail("the recheck model was never called on the main path")
+    if best.recheck_score is None:
+        fail(f"the METEOR carries no recheck score: {best}")
+    recheck_model = cfg.collector.recheck_cfg.model
+    check_healthy_run("m3det_normal", mdrf, [recheck_model],
+                      recheck_model.multiscale_pred * rechecks)
     n_frames = frames.shape[0]
-    print(f"end to end: {n_frames} frames {W}x{H} in {wall:.3f} s = "
-          f"{n_frames / wall:.2f} frames/s on {card}; METEOR "
-          f"{best.pt1}->{best.pt2} score {best.score}; launches {launches}; "
-          f"perf {json.dumps(mdrf.performance)}", flush=True)
+    print(f"end to end (m3det_normal, recheck on): {n_frames} frames "
+          f"{W}x{H} in {wall:.3f} s = {n_frames / wall:.2f} frames/s on "
+          f"{card}; METEOR {best.pt1}->{best.pt2} score {best.score} "
+          f"recheck {best.recheck_score}; launches {launches}; recheck "
+          f"forwards {rechecks} ({yolo.CALLS['network']} network "
+          f"forwards); perf {json.dumps(mdrf.performance)}", flush=True)
     return launches
 
 
 def phase_card_vs_cpu() -> None:
     from metdetpy_tpu_torch.api import detect_video
-    from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
-    w, h = 256, 144
-    frames = generate_meteor_video(
-        width=w, height=h, fps=FPS, duration_sec=6.5,
-        meteors=[SynthMeteor(start_sec=2.4, end_sec=4.4,
-                             pt1=(int(w * 0.45), int(h * 0.25)),
-                             pt2=(int(w * 0.30), int(h * 0.55)))],
-        n_stars=40, noise_sigma=3.0)
+    frames, _, _ = synth_clip(256, 144, 6.5, 2.4, 4.4, color=False,
+                              n_stars=40, seed=7)
     got = {}
     for dev in ("cuda", "cpu"):
-        mdrf = detect_video(frames, None, m3_cfg(None), work_mode="backend",
-                            device=dev)
+        mdrf = detect_video(frames, None,
+                            preset_cfg("m3det_normal", None, recheck=False),
+                            work_mode="backend", device=dev)
         got[dev] = [r.to_dict() for r in mdrf.results]
     if got["cuda"] != got["cpu"]:
         fail(f"MDRF on the card differs from the CPU: {got['cuda']} vs "
@@ -372,6 +457,237 @@ def phase_card_vs_cpu() -> None:
     if not got["cuda"]:
         fail("no record found on the small clip")
     print(f"card vs cpu: {len(got['cuda'])} MDRF record(s) equal",
+          flush=True)
+
+
+def bf16_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The bfloat16 criterion: 99% of ``got`` within 5% of the standard
+    deviation of ``want`` and none beyond 50%. Returns the largest
+    absolute difference."""
+    got, want = got.double().cpu(), want.double().cpu()
+    rel = (got - want).abs() / max(float(want.abs().std()), 1e-3)
+    q99 = float(torch.quantile(rel.flatten(), 0.99))
+    if not (q99 < 0.05 and float(rel.max()) < 0.5):
+        fail(f"{name}: bfloat16 on the card against float32 on the CPU: "
+             f"99% quantile {q99:.4f} (limit 0.05), max "
+             f"{float(rel.max()):.4f} (limit 0.5) of the standard deviation")
+    return float((got - want).abs().max())
+
+
+def phase_model(card: str) -> None:
+    """YOLOv5s with the shipped weights on the card, and the device
+    functions around it against the CPU."""
+    from metdetpy_tpu_torch.detectors import mldet
+    from metdetpy_tpu_torch.models import yolo, yolov5
+    from metdetpy_tpu_torch.models.weights import params_from_flax
+    from metdetpy_tpu_torch.utils import relative2abs_path
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    path = relative2abs_path("./weights/yolov5s_v5.flax.npz")
+    ym = yolo.YOLOModel(weight_path=path, nms=True, input_hw=(320, 320),
+                        device="cuda")
+    n_params = sum(p.numel() for p in ym.model.state_dict().values())
+    # 128 crops of 320x320: tiles of a synthetic sky, as dldet cuts them
+    sky, _, _ = synth_clip(960, 544, 64 / FPS, 0.5, 2.0, color=True)
+    _, (tiles,) = ym._plan_tiles(544, 960)
+    with torch.inference_mode():
+        stacks_dev = torch.from_numpy(sky).to(dev)
+        x = yolo._unit_f32(stacks_dev)
+        crops = torch.stack([x[:, y0:y0 + hs, x0:x0 + ws]
+                             for (y0, x0, hs, ws) in tiles], dim=1)
+        crops = yolo._resize_to(crops.reshape(-1, *crops.shape[2:]),
+                                (320, 320))
+        if tuple(crops.shape) != (128, 320, 320, 3):
+            fail(f"dldet crops are {tuple(crops.shape)}, not 128x320x320x3")
+        heads = ym.model(crops)
+        with np.load(path) as data:
+            sd = params_from_flax({k: data[k] for k in data.files})
+        ref = yolov5.YOLOv5(nc=ym.nc, dtype=torch.float32).eval()
+        ref.load_state_dict(sd, strict=True)
+        pick = [0, 1, 63, 127]
+        ref_heads = ref(crops[pick].cpu())
+        errs = [bf16_close(f"head {i}", h[pick], r)
+                for i, (h, r) in enumerate(zip(heads, ref_heads))]
+        fwd_ms = cuda_ms(lambda: ym.model(crops), 10)
+        prep_ms = cuda_ms(lambda: yolo._tiles_forward_topk(
+            ym.model, stacks_dev, tuple(tiles), (320, 320), 256, 0.25),
+            5) - fwd_ms
+        # NMS and compaction: seeded candidates, card against CPU, exact
+        sel = torch.from_numpy(np.concatenate([
+            rng.uniform(0, 320, (64, 128, 2)), rng.uniform(2, 80,
+                                                           (64, 128, 2)),
+            np.round(rng.uniform(0, 1, (64, 128, 1)), 2),
+            rng.uniform(0, 1, (64, 128, ym.nc))], axis=-1).astype(
+                np.float32))
+        sel_dev = sel.to(dev)
+        got = yolo._sel_nms_device(sel_dev, pos_thre=0.25, nms_thre=0.45)
+        want = yolo._sel_nms_device(sel, pos_thre=0.25, nms_thre=0.45)
+        for g, w_, what in zip(got, want, ("order", "keep")):
+            if not torch.equal(g.cpu(), w_):
+                fail(f"_nms_batch {what} on the card differs from the CPU")
+        got_c = yolo._compact_kept_device(sel_dev, *got, 512)
+        want_c = yolo._compact_kept_device(sel, *want, 512)
+        for g, w_, what in zip(got_c, want_c, ("packed", "counts", "total")):
+            if not torch.equal(g.cpu(), w_):
+                fail(f"_compact_kept_device {what} on the card differs "
+                     "from the CPU")
+        nms_ms = cuda_ms(lambda: yolo._sel_nms_device(
+            sel_dev, pos_thre=0.25, nms_thre=0.45), 3, 1)
+        # orientation of 64 packed rows on the 64 stacks
+        packed = torch.zeros((64, 5 + ym.nc + 1), dtype=torch.float32)
+        c = rng.uniform(20, 300, (64, 2))
+        wh = rng.uniform(4, 30, (64, 2))
+        packed[:, 0] = torch.from_numpy(rng.integers(0, 64, 64)).float()
+        packed[:, 1:5] = torch.from_numpy(np.concatenate(
+            [c - wh / 2, c + wh / 2], axis=1).astype(np.float32))
+        packed[0, 1:5] = torch.tensor([0.0, 0.0, 320.0, 320.0])  # too large
+        sw = float(np.float32(960 / 320))
+        sh = float(np.float32(544 / 320))
+        packed_dev = packed.to(dev)
+        o_got = mldet._orient_from_packed(stacks_dev, packed_dev, sw, sh,
+                                          96).cpu()
+        o_want = mldet._orient_from_packed(torch.from_numpy(sky), packed,
+                                           sw, sh, 96)
+        if not torch.equal(o_got[:, 3], o_want[:, 3]):
+            fail("_orient_from_packed ok flags on the card differ from "
+                 "the CPU")
+        okr = o_want[:, 3] > 0
+        tol = 1e-4 * o_want[okr, :3].abs() + 1e-4 * o_want[okr, 2:3]
+        o_err = (o_got[okr, :3] - o_want[okr, :3]).abs()
+        if bool((o_err > tol).any()):
+            fail(f"_orient_from_packed sums on the card differ from the "
+                 f"CPU by up to {float(o_err.max())}")
+        orient_ms = cuda_ms(lambda: mldet._orient_from_packed(
+            stacks_dev, packed_dev, sw, sh, 96), 5)
+    print(f"model: YOLOv5s {n_params} values, bfloat16, 128 crops 320x320 "
+          f"on {card}: heads against float32 (no TF32) on the CPU max abs err "
+          f"{[round(e, 4) for e in errs]} (bfloat16 criterion met); forward "
+          f"{fwd_ms:.3f} ms, crops + cubic resize + decode + top-k "
+          f"{prep_ms:.3f} ms, NMS [64 x 128] {nms_ms:.3f} ms (exact), "
+          f"compaction exact, orientation of 64 rows {orient_ms:.3f} ms "
+          f"(ok exact, {int(okr.sum())} rows, max err "
+          f"{float(o_err.max()):.3g})", flush=True)
+
+
+def _records(mdrf) -> list:
+    return [t for rec in mdrf.results for t in rec.target]
+
+
+def dldet_run(name: str, frames, card: str) -> float:
+    """config/dldet.json as shipped on 960x544 colour frames; prints the
+    run and returns its raw frames per second."""
+    from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.models import yolo
+    from metdetpy_tpu_torch.ops import kernels as K
+    cfg = preset_cfg("dldet")
+    yolo.CALLS.clear()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    mdrf = detect_video(frames, None, cfg, work_mode="backend",
+                        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recs = _records(mdrf)
+    if not recs:
+        fail(f"dldet found no record on the 960x544 clip ({name})")
+    for t in recs:
+        vals = [*t.pt1, *t.pt2, t.score]
+        if not all(np.isfinite(v) for v in vals):
+            fail(f"dldet record is not finite: {t}")
+    n = frames.shape[0]
+    merged = n // 12                      # 0.5 s of exposure at 25 fps
+    blocks = -(-merged // 64)
+    det_model, re_model = cfg.detector.cfg.model, \
+        cfg.collector.recheck_cfg.model
+    check_healthy_run(f"dldet, {name}", mdrf, [det_model, re_model],
+                      blocks * max(det_model.multiscale_pred, 1)
+                      + yolo.CALLS["forward"] * re_model.multiscale_pred)
+    print(f"dldet as shipped, {name}: {n} raw frames 960x544 colour "
+          f"({merged} merged, {blocks} blocks) in {wall:.3f} s "
+          f"= {n / wall:.2f} frames/s on {card}; {len(recs)} target(s), "
+          f"categories {sorted({t.category for t in recs})}; network "
+          f"forwards {yolo.CALLS['network']}, recheck forwards "
+          f"{yolo.CALLS['forward']}; kernel launches {dict(K.LAUNCHES)} "
+          f"(the path holds none of the four); perf "
+          f"{json.dumps(mdrf.performance)}", flush=True)
+    return n / wall
+
+
+def phase_dldet(card: str) -> None:
+    """config/dldet.json as shipped at 960x544: a two-block run (start-up:
+    the loader's pool, the model's first shapes), then twelve blocks (the
+    rate), and card against CPU."""
+    from metdetpy_tpu_torch.api import detect_video
+    # 12 s of sky with a meteor, played over and over; the preset's 0.5 s
+    # exposure merges 12 raw frames into one, 64 merged frames make a block
+    clip, _, _ = synth_clip(960, 544, 12.0, 5.0, 7.0, color=True)
+    dldet_run("start-up run of 2 blocks", CycledFrames(clip, 2 * 64 * 12),
+              card)
+    dldet_run("12 blocks", CycledFrames(clip, 12 * 64 * 12), card)
+    del clip
+    # card against CPU on a small clip at a 96x96 model input
+    small, _, _ = synth_clip(256, 144, 6.5, 2.4, 4.4, color=True,
+                             n_stars=40, seed=7)
+    os.environ["METDETPY_TPU_YOLO_HW"] = "96x96"
+    try:
+        got = {dev: _records(detect_video(
+            small.copy(), None, preset_cfg("dldet", None),
+            work_mode="backend", device=dev)) for dev in ("cuda", "cpu")}
+    finally:
+        del os.environ["METDETPY_TPU_YOLO_HW"]
+    if not got["cpu"] or len(got["cuda"]) != len(got["cpu"]):
+        fail(f"dldet on the card gives {len(got['cuda'])} target(s), the "
+             f"CPU {len(got['cpu'])}")
+    for a, b in zip(got["cuda"], got["cpu"]):
+        same = (a.category == b.category
+                and a.start_frame == b.start_frame
+                and a.last_activate_frame == b.last_activate_frame
+                and max(abs(p - q) for p, q in zip(
+                    [*a.pt1, *a.pt2], [*b.pt1, *b.pt2])) <= 2
+                and abs(a.score - b.score) <= 0.03
+                and abs((a.recheck_score or 0) - (b.recheck_score or 0))
+                <= 0.03)
+        if not same:
+            fail(f"dldet on the card differs from the CPU: {a} vs {b}")
+    print(f"dldet card vs cpu: {len(got['cpu'])} target(s) agree (category "
+          "and frames equal, points within 2 px, scores within 0.03)",
+          flush=True)
+
+
+def phase_classic(card: str) -> None:
+    """ClassicDetector through detect_video: on the card at 960x540, and
+    the card's MDRF against the CPU's on a small clip."""
+    from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.ops import kernels as K
+    frames, _, _ = synth_clip(W, H, 128 / FPS, 1.5, 3.5, color=False)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    mdrf = detect_video(frames, None,
+                        preset_cfg("m3det_normal", detector="ClassicDetector",
+                                   recheck=False),
+                        work_mode="backend", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if launches["hough_vote"] <= 0 or launches["walk_pick"] <= 0:
+        fail(f"ClassicDetector did not launch the Hough kernels: {launches}")
+    print(f"classic: {frames.shape[0]} frames {W}x{H} (point budget "
+          f"{min(max(8192, W * H // 8), 1 << 16)}) in {wall:.3f} s on {card};"
+          f" {len(mdrf.results)} record(s); launches {launches}", flush=True)
+    small, _, _ = synth_clip(256, 144, 6.5, 2.4, 4.4, color=False,
+                             n_stars=40, seed=7)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        mdrf = detect_video(small, None, preset_cfg(
+            "m3det_normal", None, recheck=False, detector="ClassicDetector"),
+            work_mode="backend", device=dev)
+        got[dev] = [r.to_dict() for r in mdrf.results]
+    if got["cuda"] != got["cpu"]:
+        fail(f"ClassicDetector's MDRF on the card differs from the CPU: "
+             f"{got['cuda']} vs {got['cpu']}")
+    if not got["cuda"]:
+        fail("ClassicDetector found no record on the small clip")
+    print(f"classic card vs cpu: {len(got['cuda'])} MDRF record(s) equal",
           flush=True)
 
 
@@ -402,6 +718,9 @@ def main() -> None:
     phase_ragged(dev)
     launches = phase_end_to_end(card)
     phase_card_vs_cpu()
+    phase_model(card)
+    phase_dldet(card)
+    phase_classic(card)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -53,12 +53,14 @@ def _wrappers():
 
 
 def _detectors():
-    from .detectors.m3det import M3Detector
+    from .detectors.m3det import (ClassicDetector, DiffAreaGuidingDetecor,
+                                  M3Detector)
+    from .detectors.mldet import MLDetector
     return {
         "M3Detector": M3Detector,
-        "ClassicDetector": None,
-        "DiffAreaGuidingDetecor": None,
-        "MLDetector": None,
+        "ClassicDetector": ClassicDetector,
+        "DiffAreaGuidingDetecor": DiffAreaGuidingDetecor,
+        "MLDetector": MLDetector,
     }
 
 

@@ -3,15 +3,16 @@
     python -m metdetpy_tpu_torch <video> [flags] [--device cuda|cpu]
 
 The arguments of ``MetDetPy.py`` (reference MetDetPy.py:253-398) plus
-``--device``. The default presets switch the recheck on, and the recheck
-is not ported yet, so pass ``--recheck off``; with the recheck on the CLI
-stops with an error rather than switching it off.
+``--device``. The presets run as shipped: they switch the recheck on, and
+the recheck model (YOLOv5s, ``weights/yolov5s_v5.flax.npz``) runs on the
+same device as the detector; ``--recheck off`` switches it off. A weight
+file that does not exist ends the run with an error.
 """
 
 import argparse
 import json
 
-from .api import RECHECK_NOT_PORTED, detect_video
+from .api import detect_video
 from .io.fileio import save_path_handler
 from .structs import BinaryCfg, MainDetectCfg
 from .utils import (SWITCH2BOOL, VERSION, relative2abs_path,
@@ -54,8 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                           help="The sensitivity of detection.")
     parser.add_argument("--recheck", type=str, choices=["on", "off"],
                         default=None,
-                        help="Apply recheck before results are printed "
-                             "(not ported yet: pass off).")
+                        help="Apply recheck before results are printed.")
     parser.add_argument("--provider", type=str, default=None,
                         help="Compute provider hint of the recheck.")
     parser.add_argument("--live-mode", type=str, nargs="?", const="on",
@@ -96,8 +96,6 @@ def main(argv=None) -> None:
             cfg.detector.cfg.binary.init_value = args.bi_thre
     if args.recheck:
         cfg.collector.recheck_cfg.switch = SWITCH2BOOL[args.recheck]
-    if cfg.collector.recheck_cfg.switch:
-        parser.error(RECHECK_NOT_PORTED)
     if args.temporal_shards:
         parser.error("--temporal-shards comes with the multi-device slice "
                      "of the PyTorch/CUDA port")

@@ -16,7 +16,7 @@ import numpy as np
 
 from . import get_detector, get_loader, get_wrapper, resolve_device
 from .detectors.base import BaseDetector
-from .detectors.m3det import LineDetector
+from .detectors.m3det import DiffAreaGuidingDetecor, LineDetector, M3Detector
 from .log import get_default_logger, set_default_logger
 from .profiling import StageTimer
 from .structs import MDRF, ClipCfg, MainDetectCfg, RuntimeParams
@@ -25,12 +25,9 @@ from .utils import (LIVE_MODE_SPEED_CTRL_CONST, VERSION, frame2time, frame2ts,
 from .visu import OpenCVMetVisu, TextColorPair, TextVisu
 
 # blocks dispatched before a deferred collection; each keeps its small
-# packed result on the device until then
+# packed result on the device until then (METDETPY_TPU_COLLECT_HORIZON
+# overrides; a detector's max_deferred_horizon caps it)
 COLLECT_HORIZON = 128
-RECHECK_NOT_PORTED = (
-    "the recheck (YOLO model) comes with the deep-learning slice of the "
-    "PyTorch/CUDA port; run with recheck off (--recheck off, or "
-    "cfg.collector.recheck_cfg.switch = False)")
 
 
 def detect_video(video_name: str, mask_name: Optional[str],
@@ -46,16 +43,17 @@ def detect_video(video_name: str, mask_name: Optional[str],
     """Detect meteors (and other events) in a video; returns an MDRF.
 
     ``device`` is ``"cuda"`` (the default; raises without a card) or
-    ``"cpu"``. Checkpointing and the recheck are not ported yet and
-    raise ``NotImplementedError``; ``provider_key`` only names the
-    recheck's compute provider and is unused.
+    ``"cpu"``; the detector and the recheck model both run there.
+    Checkpointing is not ported yet and raises ``NotImplementedError``;
+    ``provider_key`` is recorded in the recheck model's config as in the
+    JAX package (it names a compute provider of the reference's runtime
+    and selects nothing here). A recheck model that cannot be built (a
+    missing weight file) ends the call with that exception.
     """
     if checkpoint_path or resume:
         raise NotImplementedError(
             "checkpoint/resume comes with the checkpoint slice of the "
             "PyTorch/CUDA port")
-    if cfg.collector.recheck_cfg.switch:
-        raise NotImplementedError(RECHECK_NOT_PORTED)
     dev = resolve_device(device)
     set_default_logger(debug_mode, work_mode)
     logger = get_default_logger()
@@ -66,20 +64,31 @@ def detect_video(video_name: str, mask_name: Optional[str],
         LoaderCls = get_loader(cfg.loader.name)
         WrapperCls = get_wrapper(cfg.loader.wrapper)
         DetectorCls = get_detector(cfg.detector.name)
-        if not cfg.loader.grayscale:
-            raise ValueError("Require grayscale ON when using a "
-                             "LineDetector subclass.")
+        grayscale = cfg.loader.grayscale
         start_time, end_time = time_range
-        global_config = ClipCfg.from_json_file(get_clip_config_path())
 
-        video_loader = LoaderCls(
-            WrapperCls, video_name, mask_name=mask_name,
-            resize_option=cfg.loader.resize, hwaccel=cfg.loader.hwaccel,
-            start_time=start_time, end_time=end_time, grayscale=True,
+        if issubclass(DetectorCls, (LineDetector, DiffAreaGuidingDetecor)):
+            assert grayscale, ("Require grayscale ON when using a "
+                               "LineDetector subclass.")
+        else:
+            assert not grayscale, ("Require grayscale OFF when using "
+                                   "MLDetector.")
+
+        global_config = ClipCfg.from_json_file(get_clip_config_path())
+        recheck_on = cfg.collector.recheck_cfg.switch
+
+        loader_kwargs = dict(
+            mask_name=mask_name, resize_option=cfg.loader.resize,
+            hwaccel=cfg.loader.hwaccel, start_time=start_time,
+            end_time=end_time, grayscale=grayscale,
             exp_option=cfg.loader.exp_time,
             exp_upper_bound=cfg.loader.upper_bound,
             merge_func=cfg.loader.merge_func,
             continue_on_err=cfg.loader.continue_on_err)
+        # the recheck reads the loader's in-memory colour max-stacks
+        video_loader = LoaderCls(WrapperCls, video_name,
+                                 keep_color_stacks=recheck_on,
+                                 **loader_kwargs)
         video_info = video_loader.summary()
         logger.info(repr(video_loader))
 
@@ -95,7 +104,8 @@ def detect_video(video_name: str, mask_name: Optional[str],
         logger.info(f"Preprocessing finished. Time cost: "
                     f"{time.time() - t0:.1f}s.")
 
-        if cfg.detector.window_sec * rt_param.eq_fps < 3:
+        if issubclass(DetectorCls, M3Detector) and (
+                cfg.detector.window_sec * rt_param.eq_fps < 3):
             if video_loader.fps < 3:
                 raise ValueError(
                     "M3Detector cannot work below 3 FPS; increase FPS or "
@@ -108,9 +118,24 @@ def detect_video(video_name: str, mask_name: Optional[str],
             mask=video_loader.mask, num_cls=get_num_class(),
             cfg=cfg.detector.cfg, logger=logger, device=dev)
 
+        # recheck stack source: the loader's colour max-stacks (no second
+        # decode), addressed in merged frames
+        stack_provider = None
+        if recheck_on:
+            e = rt_param.exp_frame
+
+            def stack_provider(s_raw, e_raw, _vl=video_loader, _e=e,
+                               _s0=start_frame):
+                return _vl.recheck_stack((s_raw - _s0) // _e,
+                                         (e_raw - _s0) // _e)
+
         from .track.collector import MeteorCollector
+        if provider_key:
+            cfg.collector.recheck_cfg.model.providers_key = provider_key
         collector = MeteorCollector(cfg.collector, rt_param,
-                                    video_loader=None, logger=logger)
+                                    video_loader=None, logger=logger,
+                                    stack_provider=stack_provider,
+                                    device=dev)
 
         visual_manager = OpenCVMetVisu(exp_time=rt_param.exp_time,
                                        resolution=video_loader.runtime_size,
@@ -125,9 +150,10 @@ def detect_video(video_name: str, mask_name: Optional[str],
     t1 = time.time()
     try:
         video_loader.start()
-        _run_block_loop(video_loader, detector, collector, rt_param,
-                        start_frame, work_mode, live_mode, visual_mode,
-                        visual_manager, logger, t0, timer=timer)
+        recovered_blocks = _run_block_loop(
+            video_loader, detector, collector, rt_param, start_frame,
+            work_mode, live_mode, visual_mode, visual_manager, logger, t0,
+            timer=timer)
         if not visual_manager.manual_stop:
             logger.info("VideoLoader-stop detected.")
     except Exception as e:
@@ -135,17 +161,28 @@ def detect_video(video_name: str, mask_name: Optional[str],
         raise e
     finally:
         video_loader.release()
-        collector.clear()
-        visual_manager.stop()
-        logger.info("Time cost: %.4fs." % (time.time() - t1))
-        timer.log_summary(logger)
-        logger.stop()
+        try:
+            # joins the exporter's thread; an exception of the recheck
+            # raised there ends the call here
+            collector.clear()
+        finally:
+            visual_manager.stop()
+            logger.info("Time cost: %.4fs." % (time.time() - t1))
+            timer.log_summary(logger)
+            logger.stop()
 
     perf = {k: v for k, v in timer.summary().items()}
+    # blocks whose results were dropped by the loop's failure recovery
+    # (0 in a healthy run)
+    perf["recovered_blocks"] = recovered_blocks
     # decode-thread stage accounting, so consumers can decompose
     # decode_wait into host work
     for k, v in getattr(video_loader, "stage_stats", {}).items():
         perf[f"loader_{k}"] = round(v, 4) if isinstance(v, float) else v
+    # detector-internal collect decomposition (e.g. MLDetector's stacked
+    # copy vs host postprocess split), so collect_s is attributable
+    for k, v in getattr(detector, "last_collect_stats", {}).items():
+        perf[f"collect_{k}"] = round(v, 4) if isinstance(v, float) else v
     return MDRF(version=VERSION, basic_info=video_info, config=cfg,
                 type="prediction", anno_size=video_info.resolution,
                 results=collector.met_exporter.meteor_list,
@@ -157,16 +194,22 @@ def _zero_results(detector, n_real):
              np.zeros((0, detector.num_cls)))] * n_real
 
 
-def _run_block_loop(video_loader, detector: LineDetector, collector,
+def _run_block_loop(video_loader, detector: BaseDetector, collector,
                     rt_param, start_frame, work_mode, live_mode,
                     visual_mode, visual_manager, logger, t0,
-                    timer=None) -> None:
+                    timer=None) -> int:
     # One block shape per run: the tail block is padded by repeating its
     # last frame and the padded positions' results are dropped.
     # Each block is uploaded and its device step enqueued on the main
     # thread; the results are read back either per block by worker
     # threads (incremental mode: live and visual runs) or for a whole
-    # horizon of blocks at once (deferred mode, the default).
+    # horizon of blocks at once (deferred mode, the default). A detector
+    # without process_block_async (the host-side DiffAreaGuidingDetecor),
+    # or one that says it cannot run it (supports_async False: MLDetector
+    # on a model without NMS), is driven through process_block. Which of
+    # the two it is, is settled here, once: an exception of the device
+    # step moves the run to no other path (it propagates, or goes to the
+    # failure recovery below, which counts the blocks it drops).
     import collections
     import os as _os
     from concurrent.futures import ThreadPoolExecutor
@@ -177,6 +220,8 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
     e = rt_param.exp_frame
     eq_int_fps = max(rt_param.eq_int_fps, 1)
     block_frames = getattr(video_loader, "block_frames", 64)
+    use_async = (hasattr(detector, "process_block_async")
+                 and getattr(detector, "supports_async", True))
     pipeline_depth = int(_os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6))
     executor = ThreadPoolExecutor(max_workers=pipeline_depth)
     inflight: "collections.deque" = collections.deque()
@@ -199,11 +244,14 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
             blk = np.concatenate([raw_block, pad], axis=0)
         else:
             blk = raw_block
-        handle = detector.process_block_async(blk)
-        if not submit:
-            return handle, blk, n_real, device_epoch
-        fut = executor.submit(detector.collect, handle)
-        return fut, blk, n_real, device_epoch
+        if use_async:
+            handle = detector.process_block_async(blk)
+            if not submit:
+                return handle, blk, n_real, device_epoch
+            fut = executor.submit(detector.collect, handle)
+            return fut, blk, n_real, device_epoch
+        # processed when consumed; the loader may reuse its buffer by then
+        return None, np.array(blk), n_real, device_epoch
 
     progress = None
     if work_mode == "frontend":
@@ -215,6 +263,7 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
             pass
 
     consecutive_failures = 0
+    recovered_blocks = 0
 
     def recover(exc, epoch, n_real, what):
         """Device failure recovery: drop the block's results, reset the
@@ -222,7 +271,8 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
         history is host-side and survives) and keep going. Failures of
         blocks dispatched before the last reset are zero-filled without
         counting; three consecutive post-reset failures abort."""
-        nonlocal consecutive_failures, device_epoch
+        nonlocal consecutive_failures, device_epoch, recovered_blocks
+        recovered_blocks += 1
         if epoch < device_epoch:
             logger.warning(f"{exc!r} on a pre-reset inflight block; "
                            f"dropped.")
@@ -232,7 +282,8 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
                 f"{exc!r} while {what} a frame block; resetting device "
                 f"state and continuing ({consecutive_failures} "
                 f"consecutive failure(s)).")
-            if consecutive_failures >= 3:
+            if consecutive_failures >= 3 or not hasattr(
+                    detector, "reset_device_state"):
                 raise exc
             detector.reset_device_state()
             device_epoch += 1
@@ -243,7 +294,10 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
         fut, block, n_real, epoch = entry
         try:
             with timer.stage("collect"):
-                results = fut.result()[:n_real]
+                if fut is not None:
+                    results = fut.result()[:n_real]
+                else:
+                    results = detector.process_block(block)[:n_real]
             consecutive_failures = 0
         except Exception as exc:
             results = recover(exc, epoch, n_real, "processing")
@@ -293,10 +347,18 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
     # both keep the incremental path. Override with
     # METDETPY_TPU_DEFERRED_COLLECT=0.
     deferred_env = _os.environ.get("METDETPY_TPU_DEFERRED_COLLECT")
-    deferred = not live_mode and not visual_mode and deferred_env != "0"
+    deferred = (use_async and not live_mode and not visual_mode
+                and hasattr(detector, "collect_many")
+                and deferred_env != "0")
     logger.debug(
         f"Deferred collection: {'on' if deferred else 'off'} "
         f"({'env override' if deferred_env is not None else 'default'})")
+    # horizon bound: detectors whose handles pin big device arrays
+    # (MLDetector's color stacks) declare a tighter cap
+    horizon = max(1, int(_os.environ.get("METDETPY_TPU_COLLECT_HORIZON",
+                                         COLLECT_HORIZON)))
+    horizon = min(horizon, getattr(detector, "max_deferred_horizon",
+                                   horizon))
     pending: list = []
     dispatched_merged = 0
 
@@ -344,9 +406,10 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
                 break
             if deferred:
                 with timer.stage("dispatch"):
-                    handle, _blk, n_real, epoch = dispatch(raw_block,
-                                                           submit=False)
-                handle = detector.handle_slim(handle)
+                    entry = dispatch(raw_block, submit=False)
+                handle, _blk, n_real, epoch = entry
+                if hasattr(detector, "handle_slim"):
+                    handle = detector.handle_slim(handle)
                 if work_mode == "backend":
                     # heartbeat at dispatch granularity (results arrive
                     # in a burst at the horizon collect)
@@ -355,7 +418,7 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
                         rt_param.fps)))
                 dispatched_merged += n_real
                 pending.append((handle, n_real, epoch))
-                if len(pending) >= COLLECT_HORIZON and not flush_deferred():
+                if len(pending) >= horizon and not flush_deferred():
                     stopped = True
             else:
                 with timer.stage("dispatch"):
@@ -373,4 +436,5 @@ def _run_block_loop(video_loader, detector: LineDetector, collector,
         executor.shutdown(wait=True)
         if progress is not None:
             progress.close()
+    return recovered_blocks
 

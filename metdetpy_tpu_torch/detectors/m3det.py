@@ -434,6 +434,168 @@ class M3Detector(LineDetector):
         return out
 
 
+def _classic_block_step(gray_hist, sub_hist, classic_hist, ema_state, frames,
+                        timer0, *, n, roi, std_interval, momentum,
+                        warmup_speed, adaptive, coef_a, coef_b,
+                        hough_threshold, min_len, max_gap, max_points,
+                        max_peaks):
+    """Batched uzanka 4-frame algorithm (reference ClassicDetector,
+    MetLib/Detector.py:245-296): |f2-f3| -> binarize -> dilate -> invert ->
+    AND with f0/f1 -> |.| -> binarize -> dilate -> Hough."""
+    r1, c1, r2, c2 = roi
+    t_block = frames.shape[0]
+    # the gray window's stats are unused by the 4-frame algorithm; only
+    # the history carry advances
+    new_gray = (torch.cat([gray_hist, frames], dim=0)[t_block:].clone()
+                if n > 1 else gray_hist)
+    stds, new_sub = windows.window_noise_std(
+        sub_hist, frames[:, r1:r2, c1:c2], n, timer0)
+    thr, thr_f, ema_vals, new_ema = _ema_threshold_scan(
+        stds, timer0, ema_state, n=n, std_interval=std_interval,
+        momentum=momentum, warmup_speed=warmup_speed, adaptive=adaptive,
+        coef_a=coef_a, coef_b=coef_b)
+
+    seq = torch.cat([classic_hist, frames], dim=0)  # [3+T, H, W]
+    # reference index mapping (MetLib/Detector.py:258-276): id3 = newest,
+    # id0 = oldest; the NEWEST pair's diff builds the suppression mask and
+    # detection runs on the masked OLDEST pair
+    newest = seq[3:3 + t_block]
+    newer = seq[2:2 + t_block]
+    older = seq[1:1 + t_block]
+    oldest = seq[0:t_block]
+    thr_b = thr[:, None, None]
+
+    def absdiff(a, b):
+        return torch.where(a > b, a - b, b - a)
+    diff23 = filters.binary_threshold(absdiff(newer, newest), thr_b)
+    diff23 = 255 - filters.dilate3x3(diff23)
+    dst = absdiff(diff23 & oldest, diff23 & older)
+    dst = filters.dilate3x3(filters.binary_threshold(dst, thr_b))
+    gap = torch.full((t_block,), max_gap, dtype=torch.float32,
+                     device=frames.device)
+    hough = hough_lines_batch(dst, gap, threshold=hough_threshold,
+                              min_len=min_len, max_points=max_points,
+                              max_peaks=max_peaks)
+    # sum / 255.0 as XLA compiles it: the integer sum rounded to f32 (it
+    # passes 2^24 on large frames) times the f32 reciprocal of 255
+    dst_sum = dst.sum(dim=(1, 2), dtype=torch.int64).to(
+        torch.float32) * float(_F32(1) / _F32(255))
+    packed = _pack(hough.lines, hough.valid, dst_sum, hough.npix,
+                   hough.overflow, ema_vals, thr_f, thr)
+    return packed, dst, new_gray, new_sub, seq[t_block:].clone(), new_ema
+
+
+class ClassicDetector(LineDetector):
+    """4-frame differencing detector; all detections labeled METEOR
+    (reference ClassicDetector, MetLib/Detector.py:245-299)."""
+
+    CLASSIC_WINDOW = 4
+
+    def __init__(self, window_sec: float, fps: float, mask: np.ndarray,
+                 num_cls: int, cfg: BinaryCfg, logger: BaseMetLog,
+                 **kw) -> None:
+        # window is hardcoded to 4 frames regardless of window_sec
+        # (reference MetLib/Detector.py:249-255)
+        # The 4-frame dst has no median blur or dynamic mask quieting it,
+        # so noisy video binarizes+dilates to tens of thousands of points
+        # per frame; the M3 point budget would overflow-drop frames the
+        # reference keeps (it only drops at >500 LINES,
+        # MetLib/Detector.py:358-360). Derive the default budget from the
+        # frame AREA instead: 1/8 of the pixels (a dilated ~1% noise
+        # floor) with the M3 default as floor and 64k as cap. An explicit
+        # METDETPY_TPU_MAX_POINTS or caller kwarg wins verbatim.
+        if kw.get("max_points") is None:
+            env = os.environ.get("METDETPY_TPU_MAX_POINTS")
+            if env is not None:
+                kw["max_points"] = int(env)
+            else:
+                area = int(np.prod(mask.shape[:2]))
+                kw["max_points"] = min(max(8192, area // 8), 1 << 16)
+        super().__init__(self.CLASSIC_WINDOW / fps, fps, mask, num_cls, cfg,
+                         logger, **kw)
+
+    def _init_device_state(self) -> None:
+        super()._init_device_state()
+        self._classic_hist = torch.zeros((3,) + tuple(self.hw),
+                                         dtype=torch.uint8,
+                                         device=self.device)
+
+    def process_block_async(self, block) -> Any:
+        """``block``: [T, H, W] uint8, as M3Detector.process_block_async."""
+        if isinstance(block, np.ndarray):
+            block = torch.from_numpy(block).to(self.device)
+        (packed, dst, self._gray_hist, self._sub_hist, self._classic_hist,
+         self._ema) = _classic_block_step(
+            self._gray_hist, self._sub_hist, self._classic_hist, self._ema,
+            block.contiguous(), self.timer, n=self.n,
+            roi=self.std_roi, std_interval=self.std_interval,
+            momentum=self.noise_momentum, warmup_speed=float(self.n),
+            adaptive=self.adaptive, coef_a=self.coef_a, coef_b=self.coef_b,
+            hough_threshold=int(self.hough_cfg.threshold),
+            min_len=int(self.hough_cfg.min_len),
+            max_gap=float(self.hough_cfg.max_gap),
+            max_points=self.max_points, max_peaks=self.max_peaks)
+        warmup_start = self.timer
+        self.timer += block.shape[0]
+        return packed, dst, warmup_start
+
+    def _collect_from_buf(self, buf: np.ndarray,
+                          handle: Any) -> list[FrameResult]:
+        results = super()._collect_from_buf(buf, handle)
+        warmup_start = handle[2]
+        # no detection until the 4-frame window is full
+        for t in range(len(results)):
+            if warmup_start + t + 1 < self.CLASSIC_WINDOW:
+                results[t] = (np.zeros((0, 4), int),
+                              np.zeros((0, self.num_cls)))
+        return results
+
+    def _classify_lines(self, frame_lines: np.ndarray) -> FrameResult:
+        cls_pred = np.zeros((len(frame_lines), self.num_cls))
+        cls_pred[:, 0] = 1  # always METEOR
+        return frame_lines, cls_pred
+
+
+class DiffAreaGuidingDetecor(BaseDetector):
+    """EMA-background experimental detector; returns no lines (parity with
+    the incomplete reference implementation, MetLib/Detector.py:451-519).
+    Host numpy: it has no block step, and the block loop drives it frame
+    by frame through ``process_block``; ``device`` is accepted and unused.
+
+    Background maintenance uses Uint8EMA exactly as the reference does
+    (warmup-adjusted momentum, int16-promoted blend,
+    MetLib/utils.py:371-415); the reference defers the EMA update until
+    after diffing (post_update, MetLib/Detector.py:488-501)."""
+
+    def __init__(self, window_sec: float, fps: float, mask: np.ndarray,
+                 num_cls: int, cfg, logger: BaseMetLog,
+                 device: str = "cuda") -> None:
+        from ..utils import Uint8EMA
+        self.logger = logger
+        momentum = 1 - 1 / (window_sec * fps)
+        self.logger.info(f"Momentum={momentum:.4f}")
+        self.bg_maintainer = Uint8EMA(momentum=momentum)
+        self.cur_frame: Optional[np.ndarray] = None
+        self.diff_img: Optional[np.ndarray] = None
+        self.num_cls = num_cls
+
+    def update(self, new_frame: np.ndarray) -> None:
+        self.cur_frame = new_frame
+
+    def post_update(self) -> None:
+        self.bg_maintainer.update(self.cur_frame)
+
+    def detect(self) -> FrameResult:
+        if self.bg_maintainer.t == 0:
+            self.bg_maintainer.update(self.cur_frame)
+            self.diff_img = np.zeros_like(self.cur_frame)
+            return np.zeros((0, 4), int), np.zeros((0, self.num_cls))
+        self.diff_img = ((self.cur_frame.astype(np.float64) + 100)
+                         > self.bg_maintainer.cur_value).astype(np.uint8) * 255
+        self.post_update()
+        return np.zeros((0, 4), int), np.zeros((0, self.num_cls))
+
+
 def load_state_numpy(detector: LineDetector, state: dict) -> None:
     """Start ``detector`` mid-stream from carries given as numpy values.
 
@@ -442,7 +604,8 @@ def load_state_numpy(detector: LineDetector, state: dict) -> None:
     warmup_on, cur_momentum, bi_threshold, bi_thr_float) and ``timer``
     (frames consumed) -- what the JAX package's M3Detector carries in
     ``_gray_hist``, ``_sub_hist``, ``_dy_hist``, ``_ema`` and
-    ``_timer_dev``."""
+    ``_timer_dev``. For a ClassicDetector it also holds ``classic_hist``
+    ([3, H, W] uint8, the last three frames)."""
     dev = detector.device
 
     def u8(a, like):
@@ -459,6 +622,9 @@ def load_state_numpy(detector: LineDetector, state: dict) -> None:
     detector._gray_hist = u8(state["gray_hist"], detector._gray_hist)
     detector._sub_hist = u8(state["sub_hist"], detector._sub_hist)
     detector._dy_hist = u8(state["dy_hist"], detector._dy_hist)
+    if hasattr(detector, "_classic_hist"):
+        detector._classic_hist = u8(state["classic_hist"],
+                                    detector._classic_hist)
     cur, t, warm, mom, thr, thr_f = (np.asarray(v) for v in state["ema"])
     detector._ema = EmaState(f32(cur), int(t), bool(warm), _F32(mom),
                              f32(thr), f32(thr_f))

@@ -816,7 +816,10 @@ class BlockVideoLoader(VanillaVideoLoader):
                     if self.keep_color_stacks:
                         cgroup = pending_color[:e]
                         pending_color = pending_color[e:]
-                        color = np.ascontiguousarray(cgroup[0])
+                        # a copy: an in-memory source hands out views of
+                        # the caller's frames, which the in-place maxima
+                        # below must not write to
+                        color = np.array(cgroup[0])
                         for f in cgroup[1:]:
                             _u8_max_inplace(color, f)
                         if color_acc is None:

@@ -23,6 +23,7 @@ VOTE_CASES = [
     ("n100", 3, 100, 3072, "prefix", 0),
     ("n8191", 2, 8191, 3072, "prefix", 0),
     ("n32768", 2, 32768, 3072, "prefix", 0),
+    ("n65536", 2, 65536, 3072, "prefix", 0),   # ClassicDetector's budget
     ("scattered", 3, 4096, 3072, "scattered", 0),
     ("invalid", 3, 512, 3072, "invalid", 0),
     ("equal", 2, 4096, 3072, "equal", 0),

@@ -24,7 +24,8 @@ class MeteorCollector:
 
     def __init__(self, collector_cfg: CollectorCfg,
                  runtime_param: RuntimeParams, video_loader,
-                 logger: BaseMetLog, stack_provider=None) -> None:
+                 logger: BaseMetLog, stack_provider=None,
+                 recheck_model=None, device: str = "cuda") -> None:
         mcfg = collector_cfg.meteor_cfg
         self.min_len = mcfg.min_len
         self.max_interval = mcfg.max_interval * runtime_param.fps
@@ -56,7 +57,8 @@ class MeteorCollector:
             collector_cfg.recheck_cfg, runtime_param,
             video_loader=video_loader, logger=logger,
             max_interval=self.max_interval, det_thre=self.det_thre,
-            stack_provider=stack_provider)
+            stack_provider=stack_provider, recheck_model=recheck_model,
+            device=device)
 
     # ------------------------------------------------------------------
 

@@ -6,11 +6,15 @@ into SingleMDRecord clips, optionally rechecks each clip with the DL model
 on a max-stacked color image, fuses scores and demotes unmatched or
 low-score targets to DROPPED/OTHERS.
 
-TPU difference: the stacked recheck image comes from a ``stack_provider``
-callback. With BlockVideoLoader this reads the loader's in-memory per-chunk
-color max-stacks -- eliminating the reference's second decode pass
-(MetLib/collector.py:789-792; BASELINE.json north star). A provider backed
-by a second loader is also available for the per-frame loaders.
+The stacked recheck image comes from a ``stack_provider`` callback. With
+BlockVideoLoader this reads the loader's in-memory per-chunk color
+max-stacks -- eliminating the reference's second decode pass
+(MetLib/collector.py:789-792). A provider backed by a second loader is also
+available for the per-frame loaders. The recheck model is the port's
+``models.YOLOModel`` on ``device``; a failure to construct it (a missing
+weight file, no card) raises out of the constructor, and an exception in
+the export thread (the recheck's forward included) is kept and raised again
+by ``join``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ class MetExporter:
                  video_loader, logger: BaseMetLog, max_interval: float,
                  det_thre: float,
                  stack_provider: Optional[StackProvider] = None,
-                 recheck_model=None) -> None:
+                 recheck_model=None, device: str = "cuda") -> None:
         self.queue: "queue.Queue[tuple[str, list[MDTarget]]]" = queue.Queue()
         self.recheck = recheck_cfg.switch
         self.positive_cates = list(runtime_param.positive_category_list)
@@ -57,14 +61,9 @@ class MetExporter:
         self.stack_provider = stack_provider
         if self.recheck and self.recheck_model is None:
             # late model init so detect_video can inject a shared instance
-            try:
-                from ..models import init_model
-                self.recheck_model = init_model(recheck_cfg.model,
-                                                logger=self.logger)
-            except Exception as e:
-                self.logger.warning(
-                    f"Recheck model unavailable ({e!r}); recheck disabled.")
-                self.recheck = False
+            from ..models import init_model
+            self.recheck_model = init_model(recheck_cfg.model,
+                                            logger=self.logger, device=device)
         if self.recheck and self.stack_provider is None and \
                 video_loader is not None:
             self.stack_provider = _loader_stack_provider(video_loader,
@@ -78,6 +77,7 @@ class MetExporter:
         self.rescale_ratio = [x / y for x, y in zip(
             runtime_param.raw_size, runtime_param.runtime_size)]
         self.meteor_list: list[SingleMDRecord] = []
+        self._loop_error: Optional[BaseException] = None
         self.export_loop = threading.Thread(target=self.loop, daemon=True)
         self.export_loop.start()
 
@@ -85,11 +85,22 @@ class MetExporter:
         self.queue.put((flag, data))
 
     def join(self) -> None:
+        """Wait for the export thread; raise what ended it, if anything
+        did (``meteor_list`` is then incomplete)."""
         self.export_loop.join()
+        if self._loop_error is not None:
+            raise self._loop_error
 
     # ------------------------------------------------------------------
 
     def loop(self) -> None:
+        try:
+            self._loop()
+        except BaseException as e:
+            self.logger.error(f"export thread ended by {e!r}")
+            self._loop_error = e
+
+    def _loop(self) -> None:
         id2name = get_id2name()
         flag, data = self.queue.get()
         while flag in (self.ACTIVE_FLAG, self.DROP_FLAG):

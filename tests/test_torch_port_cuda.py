@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-and the MDRF on the card against the MDRF on the CPU.
+the model and its device functions against the CPU, and the MDRF on the
+card against the MDRF on the CPU.
 
 Every test here carries the ``cuda`` marker and skips without a GPU (a
 CUDA kernel has no CPU mode). The file imports nothing of JAX, so it runs
@@ -205,3 +206,128 @@ def test_mdrf_on_card_equals_cpu(cuda_device):
     assert any(t["category"] == "METEOR"
                for rec in got["cuda"] for t in rec["target"])
     assert got["cuda"] == got["cpu"]
+
+
+# -- the deep-learning path on the card -------------------------------------
+
+def _shipped_net(dtype, device):
+    from metdetpy_tpu_torch.models import yolov5
+    from metdetpy_tpu_torch.models.weights import params_from_flax
+    with np.load(relative2abs_path("./weights/yolov5s_v5.flax.npz")) as data:
+        sd = params_from_flax({k: data[k] for k in data.files})
+    net = yolov5.YOLOv5(nc=8, dtype=dtype).eval()
+    net.load_state_dict(sd, strict=True)
+    return net.to(device)
+
+
+@pytest.mark.cuda
+def test_model_heads_on_card_match_cpu_float32(cuda_device, monkeypatch):
+    """bfloat16 on the card against the port's float32 on the CPU: 99% of
+    the values within 5% of the head's standard deviation, none beyond
+    50%. float32 on the card (TF32 off) against the CPU: rtol 2e-4, atol
+    2e-4 x max|head|."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0, 1, (4, 320, 320, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = _shipped_net(torch.float32, "cpu")(x)
+        got16 = _shipped_net(torch.bfloat16, cuda_device)(x.to(cuda_device))
+        got32 = _shipped_net(torch.float32, cuda_device)(x.to(cuda_device))
+    for g16, g32, w in zip(got16, got32, want):
+        rel = (g16.cpu() - w).abs() / max(float(w.abs().std()), 1e-3)
+        assert float(torch.quantile(rel.flatten(), 0.99)) < 0.05
+        assert float(rel.max()) < 0.5
+        torch.testing.assert_close(g32.cpu(), w, rtol=2e-4,
+                                   atol=2e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_resize_on_card_in_full_float32_matches_cpu(cuda_device,
+                                                    monkeypatch):
+    """The cubic resize is two float32 products that follow the process's
+    float32 matmul setting; with TF32 off (torch's default, set here for the
+    test alone) the card agrees with the CPU to atol 1e-5, down and up."""
+    from metdetpy_tpu_torch.models import yolo
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0, 1, (3, 136, 120, 3)).astype(np.float32))
+    for hw in ((80, 80), (160, 200)):
+        want = yolo._resize_to(x, hw)
+        got = yolo._resize_to(x.to(cuda_device), hw).cpu()
+        assert tuple(got.shape) == (3, *hw, 3)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_nms_compaction_orientation_on_card_equal_cpu(cuda_device):
+    """``_sel_nms_device`` and ``_compact_kept_device`` exact; the
+    orientation's ``ok`` exact and its sums rtol 1e-4 (atol 1e-4 x the
+    weight total)."""
+    from metdetpy_tpu_torch.detectors import mldet
+    from metdetpy_tpu_torch.models import yolo
+    rng = np.random.default_rng(SEED)
+    sel = torch.from_numpy(np.concatenate([
+        rng.uniform(0, 320, (16, 64, 2)), rng.uniform(2, 80, (16, 64, 2)),
+        np.round(rng.uniform(0, 1, (16, 64, 1)), 2),
+        rng.uniform(0, 1, (16, 64, 8))], axis=-1).astype(np.float32))
+    want = yolo._sel_nms_device(sel, pos_thre=0.25, nms_thre=0.45)
+    got = yolo._sel_nms_device(sel.to(cuda_device), pos_thre=0.25,
+                               nms_thre=0.45)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for cap in (512, 16):
+        want_c = yolo._compact_kept_device(sel, *want, cap)
+        got_c = yolo._compact_kept_device(sel.to(cuda_device), *got, cap)
+        for g, w in zip(got_c, want_c):
+            assert torch.equal(g.cpu(), w)
+    stacks = torch.from_numpy(rng.integers(0, 255, (8, 144, 256, 3),
+                                           dtype=np.uint8))
+    packed = yolo._compact_kept_device(sel, *want, 64)[0].clone()
+    packed[:, 0] = packed[:, 0] % 8
+    o_want = mldet._orient_from_packed(stacks, packed, 0.8, 0.45, 96)
+    o_got = mldet._orient_from_packed(stacks.to(cuda_device),
+                                      packed.to(cuda_device), 0.8, 0.45,
+                                      96).cpu()
+    assert torch.equal(o_got[:, 3], o_want[:, 3])
+    ok = o_want[:, 3] > 0
+    assert int(ok.sum()) > 8
+    tol = 1e-4 * o_want[ok, :3].abs() + 1e-4 * o_want[ok, 2:3]
+    assert bool(((o_got[ok, :3] - o_want[ok, :3]).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["dldet", "m3det_normal"])
+def test_preset_with_recheck_on_card_matches_cpu(cuda_device, monkeypatch,
+                                                 preset):
+    """The shipped preset, recheck on, on a small colour clip: the card's
+    targets against the CPU's (category and frames equal, points within
+    2 px, scores within 0.03)."""
+    monkeypatch.setenv("METDETPY_TPU_YOLO_HW", "96x96")
+    w, h = 256, 144
+    frames = generate_meteor_video(
+        width=w, height=h, fps=25.0, duration_sec=6.5,
+        meteors=[SynthMeteor(start_sec=2.4, end_sec=4.4,
+                             pt1=(int(w * 0.45), int(h * 0.25)),
+                             pt2=(int(w * 0.30), int(h * 0.55)))],
+        n_stars=40, noise_sigma=3.0, color=True)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        cfg = MainDetectCfg.from_json_file(
+            relative2abs_path(f"./config/{preset}.json"))
+        cfg.loader.wrapper = "NumpyVideoWrapper"
+        cfg.loader.resize = None
+        if cfg.loader.grayscale:
+            cfg.loader.exp_time = "real-time"
+        mdrf = detect_video(frames.copy(), None, cfg, work_mode="backend",
+                            device=dev)
+        got[dev] = [t for rec in mdrf.results for t in rec.target]
+    assert got["cpu"] and len(got["cuda"]) == len(got["cpu"])
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert a.category == b.category
+        assert (a.start_frame, a.last_activate_frame) == \
+            (b.start_frame, b.last_activate_frame)
+        assert max(abs(p - q) for p, q in zip([*a.pt1, *a.pt2],
+                                              [*b.pt1, *b.pt2])) <= 2
+        assert abs(a.score - b.score) <= 0.03
+        assert a.recheck_score is not None
+        assert abs(a.recheck_score - b.recheck_score) <= 0.03

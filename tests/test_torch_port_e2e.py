@@ -7,6 +7,7 @@ equal the JAX package's: same records, categories, frames and points.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -21,6 +22,7 @@ from metdetpy_tpu_torch.__main__ import main as cli_main
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.detectors.m3det import M3Detector
 from metdetpy_tpu_torch.structs import MainDetectCfg as TMainDetectCfg
+from metdetpy_tpu_torch.utils import set_resource_dir
 
 # the tensors here are small: two threads run them fastest and leave the
 # host's other cores to the other test workers
@@ -98,9 +100,10 @@ def test_unported_options_raise(synth_frames):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         detect_video(synth_frames, None, cfg, checkpoint_path="x.ckpt",
                      device="cpu")
-    cfg.collector.recheck_cfg.switch = True
-    with pytest.raises(NotImplementedError, match="recheck"):
-        detect_video(synth_frames, None, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        detect_video(synth_frames, None, cfg, resume=True, device="cpu")
+    with pytest.raises(SystemExit):
+        cli_main(["x.avi", "--temporal-shards", "4", "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")
@@ -110,13 +113,27 @@ def video_file(synth_frames, tmp_path_factory):
     return path
 
 
-def test_cli_refuses_recheck_on(video_file, capsys):
-    """The default preset switches the recheck on; the CLI stops and says
-    so instead of switching it off."""
-    with pytest.raises(SystemExit) as exc:
-        cli_main([video_file, "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "recheck" in capsys.readouterr().err
+def test_cli_refuses_recheck_on(video_file, capsys, monkeypatch, tmp_path):
+    """The default preset switches the recheck on. The CLI used to stop
+    there; now it runs the preset as shipped, and what it refuses is a
+    recheck it cannot do: a weight file that does not exist ends the run
+    with an error instead of switching the recheck off."""
+    monkeypatch.setenv("METDETPY_TPU_YOLO_HW", "96x96")
+    monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
+    out = str(tmp_path / "out.json")
+    cli_main([video_file, "--device", "cpu", "--mode", "backend",
+              "--save-path", out])
+    with open(out, encoding="utf-8") as f:
+        assert json.load(f)["config"]["collector"]["recheck_cfg"]["switch"]
+    empty = tmp_path / "resources"
+    for sub in ("config", "global"):
+        shutil.copytree(os.path.join(REPO, sub), empty / sub)
+    try:
+        with pytest.raises(FileNotFoundError, match="yolov5s_v5.flax.npz"):
+            cli_main([video_file, "--device", "cpu", "--mode", "backend",
+                      "--resource-dir", str(empty)])
+    finally:
+        set_resource_dir(None)
 
 
 def test_cli_writes_mdrf(video_file, tmp_path, monkeypatch):

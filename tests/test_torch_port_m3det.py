@@ -21,7 +21,7 @@ from metdetpy_tpu.log import get_default_logger
 from metdetpy_tpu.structs import MainDetectCfg
 from metdetpy_tpu.synth import SynthMeteor, generate_meteor_video
 from metdetpy_tpu.utils import relative2abs_path
-from metdetpy_tpu_torch import get_detector, resolve_device
+from metdetpy_tpu_torch import get_detector, get_loader, resolve_device
 from metdetpy_tpu_torch.detectors import m3det as tm3
 from metdetpy_tpu_torch.structs import MainDetectCfg as TMainDetectCfg
 
@@ -141,9 +141,13 @@ def test_load_state_numpy_checks_shapes_and_reset():
 
 
 def test_registry_and_device_contract(monkeypatch):
+    # every detector is ported; the loaders still to come raise
     for name in ("ClassicDetector", "DiffAreaGuidingDetecor", "MLDetector"):
+        assert get_detector(name).__name__ == name
+    for name in ("ThreadVideoLoader", "ProcessVideoLoader",
+                 "VanillaVideoLoader"):
         with pytest.raises(NotImplementedError, match=name):
-            get_detector(name)
+            get_loader(name)
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
