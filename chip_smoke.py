@@ -47,6 +47,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 7. Classic: ``ClassicDetector`` through ``detect_video`` at 960x540 (its
    point budget there is 64,800) with ``hough_vote`` and ``walk_pick``
    launched, and on a small clip the card's MDRF equal to the CPU's.
+8. Device feed at camera size: ``m3det_normal`` (recheck off) on a gray
+   1920x1080, 25 fps clip of 256 frames with one meteor, detected at
+   960x540: once with the preprocess on the device (forced: raw blocks
+   uploaded, the exact 2:1 downscale run by the uploader), once with the
+   loader's upload off (host preprocess, the detector uploads), once
+   placed by the loader's probe; the MDRFs equal and equal to the CPU's,
+   the placement as asked, bytes uploaded by the loader, all four kernels
+   launched in each run.
+9. Loaders: ``m3det_normal`` (recheck on) at 960x540 through the Vanilla,
+   Thread and Process loaders against the Block loader's MDRF of the same
+   clip: equal for the Process loader; for the per-frame loaders, whose
+   recheck re-reads each clip through a second loader (its exact range
+   where the block loader stacks whole 16-frame chunks), everything but
+   the scores equal and the scores within 0.03.
+10. Checkpoint: the first block with a checkpoint, then a resume on the
+   whole clip, gives the uninterrupted run's METEOR (start time and box);
+   once more from a checkpoint written by a CPU run.
+11. Photo: ``python -m metdetpy_tpu_torch.photo``'s entry on a folder of
+   64 colour 1920x1080 JPEGs (batches of 32), on one of them alone and on
+   a 64-frame 960x540 timelapse AVI, on the card, with images per second;
+   the records equal the CPU's: boxes paired within 2 px and 0.03 on
+   scores, a box left unpaired only at the objectness threshold (score at
+   most sqrt(0.25) + 0.03), where bfloat16 on the card and on the CPU may
+   fall on either side.
+
+Phases 3 and 6 run the presets as ``detect_video`` sets them up: the
+loader uploads each block from pinned memory in its uploader thread; they
+require bytes uploaded by it, and phase 6 also times a 12-block dldet run
+with that upload off, in the same call.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. It imports nothing
@@ -64,6 +93,10 @@ import numpy as np
 import torch
 
 SEED = 20261016
+REPO = os.path.dirname(os.path.abspath(__file__))
+# files the smoke writes (checkpoints, photos, a timelapse); git-ignored,
+# removed by the last phase
+FILES = os.path.join(REPO, ".smoke_files")
 W, H, FPS = 960, 540, 25.0
 N_WIN, T_BLOCK, FRAME_CHUNK = 25, 64, 8
 MAX_POINTS, MAX_PEAKS = 8192, 64
@@ -424,6 +457,9 @@ def phase_end_to_end(card: str) -> dict:
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
+    if not mdrf.performance.get("loader_h2d_bytes"):
+        fail("m3det_normal: the loader uploaded no block (device-put mode "
+             "is off on the main path)")
     if rechecks < 1:
         fail("the recheck model was never called on the main path")
     if best.recheck_score is None:
@@ -573,20 +609,31 @@ def _records(mdrf) -> list:
     return [t for rec in mdrf.results for t in rec.target]
 
 
-def dldet_run(name: str, frames, card: str) -> float:
+def dldet_run(name: str, frames, card: str, device_put: bool = True):
     """config/dldet.json as shipped on 960x544 colour frames; prints the
-    run and returns its raw frames per second."""
+    run and returns (raw frames per second, dispatch seconds). With
+    ``device_put`` off the loader's upload is switched off
+    (METDETPY_TPU_LOADER_DEVICE_PUT=0) and the detector uploads."""
     from metdetpy_tpu_torch.api import detect_video
     from metdetpy_tpu_torch.models import yolo
     from metdetpy_tpu_torch.ops import kernels as K
     cfg = preset_cfg("dldet")
     yolo.CALLS.clear()
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    mdrf = detect_video(frames, None, cfg, work_mode="backend",
-                        device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    if not device_put:
+        os.environ["METDETPY_TPU_LOADER_DEVICE_PUT"] = "0"
+    try:
+        t0 = time.perf_counter()
+        mdrf = detect_video(frames, None, cfg, work_mode="backend",
+                            device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("METDETPY_TPU_LOADER_DEVICE_PUT", None)
+    uploaded = mdrf.performance.get("loader_h2d_bytes", 0)
+    if bool(uploaded) != device_put:
+        fail(f"dldet, {name}: the loader uploaded {uploaded} bytes with "
+             f"device-put {'on' if device_put else 'off'}")
     recs = _records(mdrf)
     if not recs:
         fail(f"dldet found no record on the 960x544 clip ({name})")
@@ -602,7 +649,8 @@ def dldet_run(name: str, frames, card: str) -> float:
     check_healthy_run(f"dldet, {name}", mdrf, [det_model, re_model],
                       blocks * max(det_model.multiscale_pred, 1)
                       + yolo.CALLS["forward"] * re_model.multiscale_pred)
-    print(f"dldet as shipped, {name}: {n} raw frames 960x544 colour "
+    print(f"dldet as shipped, {name} (loader upload "
+          f"{'on' if device_put else 'off'}): {n} raw frames 960x544 colour "
           f"({merged} merged, {blocks} blocks) in {wall:.3f} s "
           f"= {n / wall:.2f} frames/s on {card}; {len(recs)} target(s), "
           f"categories {sorted({t.category for t in recs})}; network "
@@ -610,7 +658,7 @@ def dldet_run(name: str, frames, card: str) -> float:
           f"{yolo.CALLS['forward']}; kernel launches {dict(K.LAUNCHES)} "
           f"(the path holds none of the four); perf "
           f"{json.dumps(mdrf.performance)}", flush=True)
-    return n / wall
+    return n / wall, mdrf.performance["dispatch_s"]
 
 
 def phase_dldet(card: str) -> None:
@@ -623,7 +671,12 @@ def phase_dldet(card: str) -> None:
     clip, _, _ = synth_clip(960, 544, 12.0, 5.0, 7.0, color=True)
     dldet_run("start-up run of 2 blocks", CycledFrames(clip, 2 * 64 * 12),
               card)
-    dldet_run("12 blocks", CycledFrames(clip, 12 * 64 * 12), card)
+    on = dldet_run("12 blocks", CycledFrames(clip, 12 * 64 * 12), card)
+    off = dldet_run("12 blocks", CycledFrames(clip, 12 * 64 * 12), card,
+                    device_put=False)
+    print(f"dldet 12 blocks on {card}: loader upload on {on[0]:.2f} raw "
+          f"frames/s, dispatch {on[1]:.4f} s; off {off[0]:.2f} frames/s, "
+          f"dispatch {off[1]:.4f} s (one call)", flush=True)
     del clip
     # card against CPU on a small clip at a 96x96 model input
     small, _, _ = synth_clip(256, 144, 6.5, 2.4, 4.4, color=True,
@@ -691,6 +744,272 @@ def phase_classic(card: str) -> None:
           flush=True)
 
 
+def _run_m3(frames, cfg, dev: str, env: dict = None, **kw):
+    """detect_video with the launch counts set to 0 just before it; returns
+    (mdrf, launches, wall seconds). ``env`` is set for the run only."""
+    from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.ops import kernels as K
+    env = env or {}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        mdrf = detect_video(frames, None, cfg, work_mode="backend",
+                            device=dev, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return mdrf, dict(K.LAUNCHES), wall
+
+
+def _require_launches(name: str, launches: dict) -> None:
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"{name}: kernels not launched: {missing} ({launches})")
+
+
+def _dicts(mdrf) -> list:
+    return [r.to_dict() for r in mdrf.results]
+
+
+def phase_feed_1080p(card: str) -> None:
+    """m3det_normal at camera size: 1920x1080 gray decoded, 960x540
+    detected, with the preprocess on the device, on the host, and where
+    the loader's probe puts it."""
+    fw, fh = 2 * W, 2 * H
+    frames, _, _ = synth_clip(fw, fh, 256 / FPS, 4.0, 6.0, color=False)
+    cfg = preset_cfg("m3det_normal", recheck=False)
+    if cfg.loader.resize != W:
+        fail(f"m3det_normal's runtime width is {cfg.loader.resize}, not {W}")
+    runs = {}
+    for name, env in (("device", {"METDETPY_TPU_DEVICE_PREPROC": "force"}),
+                      ("host", {"METDETPY_TPU_LOADER_DEVICE_PUT": "0"}),
+                      ("probed", {})):
+        mdrf, launches, wall = _run_m3(frames, preset_cfg(
+            "m3det_normal", recheck=False), "cuda", env)
+        _require_launches(f"1080p feed ({name})", launches)
+        perf = mdrf.performance
+        want = {"device": "device", "host": "host"}.get(name)
+        if want and perf.get("loader_placement") != want:
+            fail(f"1080p feed ({name}): placement "
+                 f"{perf.get('loader_placement')}, expected {want}")
+        if name != "host" and not perf.get("loader_h2d_bytes"):
+            fail(f"1080p feed ({name}): the loader uploaded nothing")
+        runs[name] = (mdrf, launches, wall)
+        print(f"1080p feed, preprocess {name}: {frames.shape[0]} frames "
+              f"{fw}x{fh} -> {W}x{H} in {wall:.3f} s = "
+              f"{frames.shape[0] / wall:.2f} frames/s on {card}; placement "
+              f"{perf.get('loader_placement')}, loader_h2d_s "
+              f"{perf.get('loader_h2d_s')}, loader_h2d_bytes "
+              f"{perf.get('loader_h2d_bytes')}, probe "
+              f"{json.dumps(perf.get('loader_preproc_probe'))}; launches "
+              f"{launches}; perf {json.dumps(perf)}", flush=True)
+    cpu, _, cpu_wall = _run_m3(frames, preset_cfg(
+        "m3det_normal", recheck=False), "cpu")
+    got = {k: _dicts(v[0]) for k, v in runs.items()}
+    if not any(t["category"] == "METEOR" for r in got["device"]
+               for t in r["target"]):
+        fail(f"1080p feed: no METEOR found ({got['device']})")
+    for k in ("host", "probed"):
+        if got[k] != got["device"]:
+            fail(f"1080p feed: the MDRF with the preprocess {k} differs "
+                 f"from the device's: {got[k]} vs {got['device']}")
+    if _dicts(cpu) != got["device"]:
+        fail(f"1080p feed: the card's MDRF differs from the CPU's: "
+             f"{got['device']} vs {_dicts(cpu)}")
+    print(f"1080p feed: {len(got['device'])} MDRF record(s), equal with the "
+          f"preprocess on the device, on the host, probed, and on the CPU "
+          f"({cpu_wall:.1f} s)", flush=True)
+
+
+def phase_loaders(card: str) -> None:
+    """m3det_normal (recheck on) through every loader, against the Block
+    loader's MDRF of the same clip."""
+    frames, _, _ = synth_clip(W, H, 8.0, 3.0, 5.0, color=True)
+    ref, launches, wall = _run_m3(frames, preset_cfg("m3det_normal"), "cuda")
+    _require_launches("BlockVideoLoader", launches)
+    want = _records(ref)
+    if not any(t.category == "METEOR" and t.recheck_score is not None
+               for t in want):
+        fail(f"loaders: no rechecked METEOR with the Block loader ({want})")
+    print(f"loaders: BlockVideoLoader {frames.shape[0]} frames {W}x{H} in "
+          f"{wall:.3f} s on {card}, {len(want)} target(s)", flush=True)
+    for name in ("ProcessVideoLoader", "VanillaVideoLoader",
+                 "ThreadVideoLoader"):
+        cfg = preset_cfg("m3det_normal")
+        cfg.loader.name = name
+        mdrf, launches, wall = _run_m3(frames, cfg, "cuda")
+        _require_launches(name, launches)
+        got = _records(mdrf)
+        if name == "ProcessVideoLoader":
+            if _dicts(mdrf) != _dicts(ref):
+                fail(f"{name}: MDRF differs from the Block loader's: "
+                     f"{_dicts(mdrf)} vs {_dicts(ref)}")
+        else:
+            def key(t):
+                d = t.to_dict()
+                return {k: v for k, v in d.items()
+                        if k not in ("score", "recheck_score",
+                                     "aesthetic_score",
+                                     "relative_brightness")}
+            if [key(t) for t in got] != [key(t) for t in want] or any(
+                    abs(a.score - b.score) > 0.03
+                    or abs((a.recheck_score or 0) - (b.recheck_score or 0))
+                    > 0.03 for a, b in zip(got, want)):
+                fail(f"{name}: targets differ from the Block loader's: "
+                     f"{got} vs {want}")
+        print(f"loaders: {name} in {wall:.3f} s on {card}: {len(got)} "
+              f"target(s) agree with the Block loader's; scores "
+              f"{[(t.score, t.recheck_score) for t in got]} vs "
+              f"{[(t.score, t.recheck_score) for t in want]}; launches "
+              f"{launches}", flush=True)
+
+
+def phase_checkpoint(card: str) -> None:
+    """Resume from a checkpoint of the first block (written on the card,
+    then by a CPU run) and get the uninterrupted METEOR."""
+    frames, _, _ = synth_clip(W, H, 8.0, 3.5, 5.5, color=False)
+    cfg = lambda: preset_cfg("m3det_normal", recheck=False)   # noqa: E731
+
+    def meteors(mdrf):
+        return [(t.start_time, t.pt1, t.pt2) for t in _records(mdrf)
+                if t.category == "METEOR"]
+
+    full, launches, _ = _run_m3(frames, cfg(), "cuda")
+    _require_launches("checkpoint (uninterrupted)", launches)
+    if not meteors(full):
+        fail("checkpoint: no METEOR in the uninterrupted run")
+    os.makedirs(FILES, exist_ok=True)
+    for writer in ("cuda", "cpu"):
+        ckpt = os.path.join(FILES, f"state_{writer}.npz")
+        _run_m3(frames[:T_BLOCK], cfg(), writer, checkpoint_path=ckpt,
+                checkpoint_interval_sec=1e9)
+        resumed, launches, wall = _run_m3(
+            frames, cfg(), "cuda", checkpoint_path=ckpt, resume=True,
+            checkpoint_interval_sec=1e9)
+        _require_launches(f"checkpoint (resumed from {writer})", launches)
+        if meteors(resumed) != meteors(full):
+            fail(f"checkpoint written on {writer}: resumed METEOR "
+                 f"{meteors(resumed)}, uninterrupted {meteors(full)}")
+        os.remove(ckpt)
+        print(f"checkpoint written on {writer}, resumed on {card} in "
+              f"{wall:.3f} s: METEOR {meteors(resumed)} equals the "
+              f"uninterrupted run's", flush=True)
+
+
+def _photo_sky(rng, w: int, h: int, streak: bool) -> np.ndarray:
+    """A colour night-sky photo: noise, stars and, if asked, a short
+    streak. (A streak hundreds of pixels long comes out of the tile pyramid
+    as a chain of boxes with near-equal scores, where bfloat16 rounding on
+    the card and on the CPU lets the multiscale NMS keep different links.)
+    """
+    import cv2
+    img = rng.normal(14, 3, (h, w)).astype(np.float32)
+    for x, y, a in zip(rng.uniform(0, w, 300), rng.uniform(0, h, 300),
+                       rng.uniform(30, 200, 300)):
+        cv2.circle(img, (int(x), int(y)), 1, float(a), -1)
+    if streak:
+        x1, y1 = rng.uniform(0.05 * w, 0.8 * w), rng.uniform(0.05 * h,
+                                                              0.7 * h)
+        length, ang = rng.uniform(0.03 * w, 0.07 * w), rng.uniform(0.2, 1.3)
+        x2, y2 = x1 + length * np.cos(ang), y1 + length * np.sin(ang)
+        cv2.line(img, (int(x1), int(y1)), (int(x2), int(y2)), 220.0, 3)
+        img = cv2.GaussianBlur(img, (5, 5), 1.2)
+    u8 = np.clip(img, 0, 255).astype(np.uint8)
+    return np.repeat(u8[..., None], 3, -1)
+
+
+def _photo_records(argv, dev: str) -> tuple[dict, float]:
+    from metdetpy_tpu_torch import photo
+    from metdetpy_tpu_torch.models import yolo
+    out = os.path.join(FILES, f"photo_{dev}.json")
+    yolo.CALLS.clear()
+    t0 = time.perf_counter()
+    photo.main([*argv, "--device", dev, "--save-path", out])
+    wall = time.perf_counter() - t0
+    with open(out, encoding="utf-8") as f:
+        data = json.load(f)
+    os.remove(out)
+    return data, wall
+
+
+def _photo_close(name: str, got: dict, want: dict) -> None:
+    """Records on the card against the CPU's: per image (or timelapse
+    frame), each box paired with one of the other side of the same class
+    within 2 px and 0.03 in score. A box may stay unpaired only at the
+    objectness threshold, where the two bfloat16 bodies may fall on either
+    side: its score sqrt(cls * obj) is then at most sqrt(0.25) + 0.03."""
+    def boxes(data):
+        out = {}
+        for r in data["results"]:
+            key = r.get("img_filename") or r.get("num_frame")
+            out[key] = list(zip(r["boxes"], r["preds"],
+                                map(float, r["prob"])))
+        return out
+    g, w = boxes(got), boxes(want)
+    bad = got["type"] != want["type"]
+    for key in set(g) | set(w):
+        left = list(w.get(key, []))
+        for box, pred, prob in g.get(key, []):
+            near = [c for c in left if c[1] == pred
+                    and max(abs(p - q) for p, q in zip(box, c[0])) <= 2
+                    and abs(prob - c[2]) <= 0.03 + 1e-9]
+            if near:
+                left.remove(near[0])
+            elif prob > 0.53:
+                bad = True
+        bad = bad or any(c[2] > 0.53 for c in left)
+    if bad:
+        fail(f"photo, {name}: records on the card differ from the CPU's: "
+             f"{got['results']} vs {want['results']}")
+
+
+def phase_photo(card: str) -> None:
+    """The photo entry point on the card against the CPU: a folder of 64
+    colour 1920x1080 JPEGs, one of them alone, a 64-frame timelapse."""
+    import cv2
+    from metdetpy_tpu_torch.models import yolo
+    from metdetpy_tpu_torch.synth import write_video
+    rng = np.random.default_rng(SEED + 3)
+    folder = os.path.join(FILES, "photos")
+    os.makedirs(folder, exist_ok=True)
+    for i in range(64):
+        cv2.imwrite(os.path.join(folder, f"sky_{i:02d}.jpg"),
+                    _photo_sky(rng, 2 * W, 2 * H, i % 4 == 0),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+    # timelapse frames are photos of their own, a short streak in every
+    # fourth (a synthetic video's meteor leaves a glowing trail, the long
+    # chain of near-equal boxes the photos avoid)
+    video = os.path.join(FILES, "timelapse.avi")
+    write_video(np.stack([_photo_sky(rng, W, H, i % 4 == 0)
+                          for i in range(64)]), video, fps=FPS)
+    single = os.path.join(folder, "sky_00.jpg")
+    for name, target, n in ((f"folder of 64 JPEGs {2 * W}x{2 * H}", folder,
+                             64),
+                            (f"one JPEG {2 * W}x{2 * H}", single, 1),
+                            (f"timelapse AVI of 64 frames {W}x{H}", video,
+                             64)):
+        got, wall = _photo_records([target], "cuda")
+        nets = yolo.CALLS["network"]
+        want, cpu_wall = _photo_records([target], "cpu")
+        _photo_close(name, got, want)
+        if name.startswith("folder") and not got["results"]:
+            fail("photo: no detection in the folder")
+        print(f"photo, {name}: {n / wall:.2f} images/s on {card} "
+              f"({wall:.3f} s with the model's load, {nets} network "
+              f"forwards); {len(got['results'])} record(s) equal to the "
+              f"CPU's ({cpu_wall:.1f} s) within 2 px and 0.03", flush=True)
+    import shutil
+    shutil.rmtree(FILES)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
@@ -721,6 +1040,10 @@ def main() -> None:
     phase_model(card)
     phase_dldet(card)
     phase_classic(card)
+    phase_feed_1080p(card)
+    phase_loaders(card)
+    phase_checkpoint(card)
+    phase_photo(card)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -31,12 +31,13 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def _loaders():
-    from .io.videoloader import BlockVideoLoader
+    from .io.videoloader import (BlockVideoLoader, ProcessVideoLoader,
+                                 ThreadVideoLoader, VanillaVideoLoader)
     return {
+        "VanillaVideoLoader": VanillaVideoLoader,
+        "ThreadVideoLoader": ThreadVideoLoader,
         "BlockVideoLoader": BlockVideoLoader,
-        "VanillaVideoLoader": None,
-        "ThreadVideoLoader": None,
-        "ProcessVideoLoader": None,
+        "ProcessVideoLoader": ProcessVideoLoader,
     }
 
 
@@ -64,6 +65,21 @@ def _detectors():
     }
 
 
+def _writers():
+    # the video writers come with the port's ClipToolkit slice
+    return {
+        "BaseVideoWriter": None,
+        "OpenCVVideoWriter": None,
+        "PyAVVideoWriter": None,
+        "FFMpegVideoWriter": None,
+    }
+
+
+def _models():
+    from .models.yolo import YOLOModel
+    return {"YOLOModel": YOLOModel}
+
+
 def _resolver(kind: str, table_fn: Callable[[], dict]):
     def get(class_name: str):
         table = table_fn()
@@ -80,3 +96,5 @@ def _resolver(kind: str, table_fn: Callable[[], dict]):
 get_loader = _resolver("loader", _loaders)
 get_wrapper = _resolver("wrapper", _wrappers)
 get_detector = _resolver("detector", _detectors)
+get_writer = _resolver("writer", _writers)
+get_model = _resolver("model", _models)

@@ -2,9 +2,12 @@
 
 Counterpart of ``metdetpy_tpu/api.py`` (orchestration parity with
 reference MetDetPy.py:24-250: loader -> detector -> collector loop, work
-modes, live mode, time windows, MDRF result). The BlockVideoLoader feeds
-whole ``[T, H, W]`` frame blocks through the detector's device block step;
-results are collected with one device->host copy per group of blocks.
+modes, live mode, time windows, checkpoint/resume, MDRF result). A
+BlockVideoLoader feeds whole ``[T, H, W]`` frame blocks through the
+detector's device block step, uploaded by the loader itself where the
+detector takes device blocks; results are collected with one device->host
+copy per group of blocks. The per-frame loaders (Vanilla, Thread) drive
+the detector frame by frame.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 from . import get_detector, get_loader, get_wrapper, resolve_device
 from .detectors.base import BaseDetector
 from .detectors.m3det import DiffAreaGuidingDetecor, LineDetector, M3Detector
+from .io.videoloader import BlockVideoLoader
 from .log import get_default_logger, set_default_logger
 from .profiling import StageTimer
 from .structs import MDRF, ClipCfg, MainDetectCfg, RuntimeParams
@@ -44,16 +48,15 @@ def detect_video(video_name: str, mask_name: Optional[str],
 
     ``device`` is ``"cuda"`` (the default; raises without a card) or
     ``"cpu"``; the detector and the recheck model both run there.
-    Checkpointing is not ported yet and raises ``NotImplementedError``;
-    ``provider_key`` is recorded in the recheck model's config as in the
-    JAX package (it names a compute provider of the reference's runtime
-    and selects nothing here). A recheck model that cannot be built (a
-    missing weight file) ends the call with that exception.
+    With ``checkpoint_path`` set, the detector and collector state is saved
+    every ``checkpoint_interval_sec`` and at the end (the JAX package's
+    file format); ``resume=True`` restores it and continues at the saved
+    frame cursor. Both need a block loader. ``provider_key`` is recorded in
+    the recheck model's config as in the JAX package (it names a compute
+    provider of the reference's runtime and selects nothing here). A
+    recheck model that cannot be built (a missing weight file) ends the
+    call with that exception.
     """
-    if checkpoint_path or resume:
-        raise NotImplementedError(
-            "checkpoint/resume comes with the checkpoint slice of the "
-            "PyTorch/CUDA port")
     dev = resolve_device(device)
     set_default_logger(debug_mode, work_mode)
     logger = get_default_logger()
@@ -85,14 +88,28 @@ def detect_video(video_name: str, mask_name: Optional[str],
             exp_upper_bound=cfg.loader.upper_bound,
             merge_func=cfg.loader.merge_func,
             continue_on_err=cfg.loader.continue_on_err)
-        # the recheck reads the loader's in-memory colour max-stacks
-        video_loader = LoaderCls(WrapperCls, video_name,
-                                 keep_color_stacks=recheck_on,
-                                 **loader_kwargs)
+        block_loader = issubclass(LoaderCls, BlockVideoLoader)
+        if resume and not checkpoint_path:
+            raise ValueError("resume=True needs a checkpoint_path")
+        if (checkpoint_path or resume) and not block_loader:
+            raise ValueError("checkpoint/resume needs a block loader; "
+                             f"{cfg.loader.name} delivers single frames")
+        if block_loader:
+            # the recheck reads the loader's in-memory colour max-stacks
+            loader_kwargs["keep_color_stacks"] = recheck_on
+            # detectors with a device block step take blocks the loader
+            # has uploaded itself, so the copy overlaps dispatch and
+            # collect (visual mode needs host frames)
+            loader_kwargs["device_put"] = (
+                hasattr(DetectorCls, "process_block_async")
+                and not visual_mode)
+            loader_kwargs["device"] = dev
+        video_loader = LoaderCls(WrapperCls, video_name, **loader_kwargs)
         video_info = video_loader.summary()
         logger.info(repr(video_loader))
 
         start_frame = video_loader.start_frame
+        end_frame = video_loader.end_frame
         rt_param = RuntimeParams(
             fps=video_loader.fps, exp_frame=video_loader.exp_frame,
             eq_fps=video_loader.eq_fps, eq_int_fps=video_loader.eq_int_fps,
@@ -118,22 +135,34 @@ def detect_video(video_name: str, mask_name: Optional[str],
             mask=video_loader.mask, num_cls=get_num_class(),
             cfg=cfg.detector.cfg, logger=logger, device=dev)
 
-        # recheck stack source: the loader's colour max-stacks (no second
-        # decode), addressed in merged frames
+        # recheck stack source: a block loader's colour max-stacks (no
+        # second decode), addressed in merged frames; the per-frame loaders
+        # re-read the clip through a second, colour loader, as the
+        # reference does (MetDetPy.py:147-156)
         stack_provider = None
+        recheck_loader = None
         if recheck_on:
-            e = rt_param.exp_frame
+            if block_loader:
+                e = rt_param.exp_frame
 
-            def stack_provider(s_raw, e_raw, _vl=video_loader, _e=e,
-                               _s0=start_frame):
-                return _vl.recheck_stack((s_raw - _s0) // _e,
-                                         (e_raw - _s0) // _e)
+                def stack_provider(s_raw, e_raw, _vl=video_loader, _e=e,
+                                   _s0=start_frame):
+                    return _vl.recheck_stack((s_raw - _s0) // _e,
+                                             (e_raw - _s0) // _e)
+            else:
+                recheck_loader = LoaderCls(
+                    WrapperCls, video_name, mask_name=mask_name,
+                    resize_option=cfg.loader.resize,
+                    hwaccel=cfg.loader.hwaccel, grayscale=False,
+                    exp_option="real-time",
+                    merge_func=cfg.loader.merge_func, continue_on_err=True)
 
         from .track.collector import MeteorCollector
         if provider_key:
             cfg.collector.recheck_cfg.model.providers_key = provider_key
         collector = MeteorCollector(cfg.collector, rt_param,
-                                    video_loader=None, logger=logger,
+                                    video_loader=recheck_loader,
+                                    logger=logger,
                                     stack_provider=stack_provider,
                                     device=dev)
 
@@ -148,12 +177,29 @@ def detect_video(video_name: str, mask_name: Optional[str],
 
     timer = StageTimer()
     t1 = time.time()
+    recovered_blocks = 0
+    resume_idx = 0
     try:
+        if resume:
+            from .checkpoint import load_checkpoint
+            resume_idx = load_checkpoint(checkpoint_path, detector,
+                                         collector)
+            video_loader.reset(
+                start_frame=start_frame + resume_idx * rt_param.exp_frame)
+            logger.info(f"Resumed from {checkpoint_path} at merged frame "
+                        f"{resume_idx}.")
         video_loader.start()
-        recovered_blocks = _run_block_loop(
-            video_loader, detector, collector, rt_param, start_frame,
-            work_mode, live_mode, visual_mode, visual_manager, logger, t0,
-            timer=timer)
+        if block_loader:
+            recovered_blocks = _run_block_loop(
+                video_loader, detector, collector, rt_param, start_frame,
+                work_mode, live_mode, visual_mode, visual_manager, logger,
+                t0, timer=timer, resume_idx=resume_idx,
+                checkpoint_path=checkpoint_path,
+                checkpoint_interval_sec=checkpoint_interval_sec)
+        else:
+            _run_frame_loop(video_loader, detector, collector, rt_param,
+                            start_frame, end_frame, work_mode, live_mode,
+                            visual_mode, visual_manager, logger, t0)
         if not visual_manager.manual_stop:
             logger.info("VideoLoader-stop detected.")
     except Exception as e:
@@ -166,6 +212,8 @@ def detect_video(video_name: str, mask_name: Optional[str],
             # raised there ends the call here
             collector.clear()
         finally:
+            if recheck_loader is not None:
+                recheck_loader.release()
             visual_manager.stop()
             logger.info("Time cost: %.4fs." % (time.time() - t1))
             timer.log_summary(logger)
@@ -175,8 +223,9 @@ def detect_video(video_name: str, mask_name: Optional[str],
     # blocks whose results were dropped by the loop's failure recovery
     # (0 in a healthy run)
     perf["recovered_blocks"] = recovered_blocks
-    # decode-thread stage accounting, so consumers can decompose
-    # decode_wait into host work
+    # decode-thread stage accounting (the uploads and the preprocess
+    # placement included), so consumers can decompose decode_wait into
+    # host work and transfer
     for k, v in getattr(video_loader, "stage_stats", {}).items():
         perf[f"loader_{k}"] = round(v, 4) if isinstance(v, float) else v
     # detector-internal collect decomposition (e.g. MLDetector's stacked
@@ -197,11 +246,15 @@ def _zero_results(detector, n_real):
 def _run_block_loop(video_loader, detector: BaseDetector, collector,
                     rt_param, start_frame, work_mode, live_mode,
                     visual_mode, visual_manager, logger, t0,
-                    timer=None) -> int:
+                    timer=None, resume_idx: int = 0,
+                    checkpoint_path: Optional[str] = None,
+                    checkpoint_interval_sec: float = 60.0) -> int:
     # One block shape per run: the tail block is padded by repeating its
     # last frame and the padded positions' results are dropped.
-    # Each block is uploaded and its device step enqueued on the main
-    # thread; the results are read back either per block by worker
+    # In the loader's device-put mode each block arrives uploaded and
+    # padded, as a (device tensor, n_real) pair; otherwise it is padded
+    # here and the detector uploads it. The device step is enqueued on the
+    # main thread; the results are read back either per block by worker
     # threads (incremental mode: live and visual runs) or for a whole
     # horizon of blocks at once (deferred mode, the default). A detector
     # without process_block_async (the host-side DiffAreaGuidingDetecor),
@@ -216,7 +269,8 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
 
     if timer is None:
         timer = StageTimer()
-    merged_idx = 0
+    merged_idx = resume_idx
+    last_ckpt = time.time()
     e = rt_param.exp_frame
     eq_int_fps = max(rt_param.eq_int_fps, 1)
     block_frames = getattr(video_loader, "block_frames", 64)
@@ -232,18 +286,25 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
     # are zero-filled without counting toward the consecutive-failure
     # abort limit.
     device_epoch = 0
+    device_mode = getattr(video_loader, "device_put_mode", False)
 
     def dispatch(raw_block, submit=True):
-        """Pad, upload and enqueue the device step for one block. With
-        submit=False (deferred collection) the raw handle is returned
-        instead of a collect future. The upload copies the block before
-        process_block_async returns, so the loader may reuse its buffer."""
-        n_real = raw_block.shape[0]
-        if n_real < block_frames:
-            pad = np.repeat(raw_block[-1:], block_frames - n_real, axis=0)
-            blk = np.concatenate([raw_block, pad], axis=0)
+        """Enqueue the device step for one block. In device-put mode the
+        block is the loader's (device tensor, n_real) pair, taken as it
+        is; otherwise it is padded here and the detector uploads it (the
+        copy completes before process_block_async returns, so the loader
+        may reuse its buffer). With submit=False (deferred collection) the
+        raw handle is returned instead of a collect future."""
+        if device_mode:
+            blk, n_real = raw_block
         else:
-            blk = raw_block
+            n_real = raw_block.shape[0]
+            if n_real < block_frames:
+                pad = np.repeat(raw_block[-1:], block_frames - n_real,
+                                axis=0)
+                blk = np.concatenate([raw_block, pad], axis=0)
+            else:
+                blk = raw_block
         if use_async:
             handle = detector.process_block_async(blk)
             if not submit:
@@ -251,13 +312,14 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
             fut = executor.submit(detector.collect, handle)
             return fut, blk, n_real, device_epoch
         # processed when consumed; the loader may reuse its buffer by then
-        return None, np.array(blk), n_real, device_epoch
+        return (None, blk if device_mode else np.array(blk), n_real,
+                device_epoch)
 
     progress = None
     if work_mode == "frontend":
         try:
             import tqdm
-            total = max(video_loader.iterations // e, 0)
+            total = max(video_loader.iterations // e - resume_idx, 0)
             progress = tqdm.tqdm(total=total, ncols=100, unit="frame")
         except ImportError:
             pass
@@ -360,7 +422,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
     horizon = min(horizon, getattr(detector, "max_deferred_horizon",
                                    horizon))
     pending: list = []
-    dispatched_merged = 0
+    dispatched_merged = resume_idx
 
     def flush_deferred():
         """Collect every pending handle (one copy per group), then emit in
@@ -427,6 +489,23 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
                     if consume(inflight.popleft()) is False:
                         stopped = True
                         break
+            if (checkpoint_path and not stopped
+                    and time.time() - last_ckpt >= checkpoint_interval_sec):
+                # drain the pipeline before the snapshot: the detector's
+                # carries advance at dispatch, so a snapshot taken with
+                # blocks in flight would be ahead of the collector and the
+                # frame cursor
+                if deferred:
+                    stopped = flush_deferred() is False
+                while inflight and not stopped:
+                    if consume(inflight.popleft()) is False:
+                        stopped = True
+                if not stopped:
+                    from .checkpoint import save_checkpoint
+                    with timer.stage("checkpoint"):
+                        save_checkpoint(checkpoint_path, detector,
+                                        collector, merged_idx)
+                    last_ckpt = time.time()
         if not stopped and deferred:
             stopped = flush_deferred() is False
         while inflight and not stopped:
@@ -436,5 +515,44 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
         executor.shutdown(wait=True)
         if progress is not None:
             progress.close()
+        if checkpoint_path:
+            from .checkpoint import save_checkpoint
+            save_checkpoint(checkpoint_path, detector, collector, merged_idx)
     return recovered_blocks
+
+
+def _run_frame_loop(video_loader, detector, collector, rt_param, start_frame,
+                    end_frame, work_mode, live_mode, visual_mode,
+                    visual_manager, logger, t0) -> None:
+    """The per-frame loop of the Vanilla and Thread loaders: one merged
+    frame at a time through the detector's ``update``/``detect``."""
+    eq_int_fps = max(rt_param.eq_int_fps, 1)
+    for prog_int, i in enumerate(
+            range(start_frame, end_frame, rt_param.exp_frame)):
+        if work_mode == "backend" and prog_int % eq_int_fps == 0:
+            logger.processing(str(frame2time(i, rt_param.fps)))
+        x = video_loader.pop()
+        if video_loader.stopped or x is None:
+            break
+        detector.update(x)
+        lines, cates = detector.detect()
+        if len(lines) or prog_int % eq_int_fps == 0:
+            collector.update(i, lines=lines, cates=cates)
+        if visual_mode:
+            visu_info = [TextVisu(
+                "timestamp",
+                text_list=[TextColorPair(frame2ts(i, rt_param.fps))],
+                position="left-bottom", color="white")]
+            visu_info.extend(detector.visu())
+            visu_info.extend(collector.visu(frame_num=i))
+            visual_manager.display_a_frame(x, visu_info)
+            if visual_manager.manual_stop:
+                logger.info("Manual interrupt signal detected.")
+                return
+        if live_mode:
+            expect = (prog_int * rt_param.exp_frame / rt_param.fps
+                      ) * LIVE_MODE_SPEED_CTRL_CONST
+            elapsed = time.time() - t0
+            if elapsed < expect:
+                time.sleep(expect - elapsed)
 

@@ -1,19 +1,28 @@
 """Video loaders: mask loading, resize parsing, preprocess, exposure-time
 estimation, and frame/block delivery (host side of the port).
 
-A copy of the JAX package's ``io/videoloader.py`` reduced to the
-host-preprocess path: API parity with reference
-MetLib/videoloader.py:48-192 (start / pop / reset / stop / release /
-summary + exp-time estimation), with two delivery models:
+A copy of the JAX package's ``io/videoloader.py`` (API parity with
+reference MetLib/videoloader.py:48-192: start / pop / reset / stop /
+release / summary + exp-time estimation), with the upload written for
+PyTorch. Delivery models:
 
-  - ``VanillaVideoLoader``: per-frame ``pop()`` with decode inside it.
+  - ``VanillaVideoLoader`` / ``ThreadVideoLoader``: per-frame ``pop()``,
+    the reference's pipeline (decode inside ``pop``, or a decode thread
+    and a bounded queue, reference MetLib/videoloader.py:497-631).
   - ``BlockVideoLoader``: the device feed. The decode thread assembles
     preprocessed frames into contiguous uint8 blocks of ``block_frames``
     exposure-merged frames; ``pop_block()`` hands whole ``[T, H, W]``
-    arrays to the consumer, which uploads each with one host->device copy.
-    When recheck is enabled it also maintains per-chunk color max-stacks so
-    the recheck stage needs no second decode pass (the reference re-decodes
-    every clip, MetLib/collector.py:789-792).
+    blocks to the consumer, or, in device-put mode, tensors the loader has
+    already uploaded from pinned memory on a stream of its own (and, where
+    it is exact, preprocessed on the device). When recheck is enabled it
+    also maintains per-chunk color max-stacks so the recheck stage needs no
+    second decode pass (the reference re-decodes every clip,
+    MetLib/collector.py:789-792).
+  - ``ProcessVideoLoader``: the block feed decoded in a child process
+    through a shared-memory ring.
+
+``torch`` is imported only inside the functions that upload, so the
+decode worker process stays host-only.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from ..native import \
     resize_bgr2gray_assemble_u8 as _resize_bgr2gray_assemble_u8
 from ..native import u8_max_inplace as _u8_max_inplace
 from .fileio import load_mask
-from .videowrapper import BaseVideoWrapper
+from .videowrapper import BaseVideoWrapper, NumpyVideoWrapper
 
 UP_EXPOSURE_BOUND = 0.5
 DEFAULT_EXPOSURE_FRAME = 1
@@ -539,33 +548,169 @@ class VanillaVideoLoader(BaseVideoLoader):
         return float(exp_time)
 
 
+class ThreadVideoLoader(VanillaVideoLoader):
+    """Decode-thread loader with a bounded frame queue
+    (reference MetLib/videoloader.py:497-631)."""
+
+    def __init__(self, *args: Any, maxsize: int = 32, **kwargs: Any) -> None:
+        self.maxsize = maxsize
+        self.queue: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        super().__init__(*args, **kwargs)
+
+    def clear_queue(self):
+        while not self.queue.empty():
+            self.queue.get()
+
+    def start(self):
+        self.clear_queue()
+        self.read_stopped = False
+        self.status = True
+        self.video.set_to(self.start_frame)
+        self.thread = threading.Thread(target=self._videoloop, daemon=True)
+        self.thread.start()
+
+    def pop(self):
+        if self.stopped:
+            self.thread.join()
+            raise Exception(f"Attempt to read from an ended "
+                            f"{self.__class__.__name__}.")
+        ret = []
+        try:
+            for _ in range(self.exp_frame):
+                if self.stopped:
+                    break
+                frame = self.queue.get(timeout=GET_TIMEOUT)
+                if isinstance(frame, str):
+                    raise queue.Empty()
+                ret.append(frame)
+        except queue.Empty:
+            if not self.read_stopped:
+                raise
+        if not ret:
+            return None
+        return self.merge_func(ret)
+
+    def _put_wait(self, item) -> bool:
+        """Put with indefinite backpressure while the loader is live: the
+        consumer can legitimately stall far past one PUT_TIMEOUT (a first
+        kernel build), and a decode thread that dies on queue.Full silently
+        truncates the stream. Returns False once the loader is stopped."""
+        while True:
+            try:
+                self.queue.put(item, timeout=PUT_TIMEOUT)
+                return True
+            except queue.Full:
+                if self.read_stopped:
+                    return False
+
+    def _videoloop(self):
+        try:
+            for i in range(self.iterations):
+                if self.read_stopped or not self.status:
+                    if not self.continue_on_err:
+                        break
+                self.status, self.cur_frame = self.video.read()
+                if self.status and self.cur_frame is not None:
+                    if not self._put_wait(self.preprocess(self.cur_frame)):
+                        break
+                else:
+                    self.logger.warning(
+                        f"Load frame failed at {self.start_frame + i}")
+                    if not self.continue_on_err:
+                        self.stop()
+                        self._put_wait(FAILED_FLAG)
+                        break
+        finally:
+            self.stop()
+
+    def stop(self):
+        if not self.read_stopped:
+            super().stop()
+
+    def release(self):
+        super().release()
+        self.clear_queue()
+
+    @property
+    def stopped(self) -> bool:
+        return self.read_stopped and self.queue.empty()
+
+
 _POOL_LOCK = threading.Lock()
 _POOL_CACHE: dict[tuple, list] = {}
 
 
-def _lease_block_pool(shape: tuple, n: int) -> list:
-    """Check out a pre-faulted block-buffer pool for `shape`.
+def _timeit(fn) -> float:
+    import time
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
-    Faulting in fresh anonymous memory measured as low as ~6 MB/s while
-    the TPU client streams (mmap + THP compaction pathology on this
-    host), so buffer pools are allocated once per process and leased
-    across loader instances/passes instead of reallocated per run.
+
+def _probe_host_resize_s(rh: int, rw: int, w: int, h: int) -> float:
+    """Seconds for one host resize of an (rh, rw) gray frame to (w, h).
+    Resize cost is data-independent, so a zeros frame is representative;
+    min over reps dodges scheduler jitter."""
+    frame = np.zeros((rh, rw), np.uint8)
+    return min(_timeit(lambda: cv2.resize(
+        frame, (w, h), interpolation=cv2.INTER_LINEAR))
+        for _ in range(3))
+
+
+def _probe_h2d_bps(rh: int, rw: int, device) -> float:
+    """Measured host->device bandwidth (bytes/s) of the feed's own upload:
+    from pinned memory on a card (``torch.cuda.synchronize`` ends the timed
+    copy), a plain copy on the CPU. A small copy first pays the
+    first-transfer setup, then one four-frame block is timed."""
+    import torch
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    blk = torch.zeros((4, rh, rw), dtype=torch.uint8, pin_memory=cuda)
+    dst = torch.empty(blk.shape, dtype=torch.uint8, device=dev)
+
+    def copy():
+        dst.copy_(blk, non_blocking=cuda)
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    dst[:1, :1].copy_(blk[:1, :1])
+    copy()
+    t = min(_timeit(copy) for _ in range(2))
+    return blk.numel() / max(t, 1e-9)
+
+
+def _lease_block_pool(shape: tuple, n: int, pinned: bool = False) -> list:
+    """Check out a pre-faulted block-buffer pool for ``shape``.
+
+    Buffers are allocated once per process and leased across loader
+    instances and passes: faulting in (or pinning) hundreds of MB per run
+    costs seconds. With ``pinned`` the buffers are page-locked host memory
+    (``torch.empty(..., pin_memory=True)`` viewed as numpy), so the card's
+    copy engine reads them directly and the upload does not wait for the
+    host.
     """
+    def alloc():
+        if pinned:
+            import torch
+            return torch.empty(shape, dtype=torch.uint8,
+                               pin_memory=True).numpy()
+        return np.zeros(shape, np.uint8)
+
+    key = (shape, pinned)
     with _POOL_LOCK:
-        pools = _POOL_CACHE.setdefault(shape, [])
+        pools = _POOL_CACHE.setdefault(key, [])
         if pools:
             pool = pools.pop()
             if len(pool) >= n:
                 return pool
-            pool.extend(np.zeros(shape, np.uint8)
-                        for _ in range(n - len(pool)))
+            pool.extend(alloc() for _ in range(n - len(pool)))
             return pool
-    return [np.zeros(shape, np.uint8) for _ in range(n)]
+    return [alloc() for _ in range(n)]
 
 
-def _return_block_pool(shape: tuple, pool: list) -> None:
+def _return_block_pool(shape: tuple, pool: list, pinned: bool) -> None:
     with _POOL_LOCK:
-        _POOL_CACHE.setdefault(shape, []).append(pool)
+        _POOL_CACHE.setdefault((shape, pinned), []).append(pool)
 
 
 class BlockVideoLoader(VanillaVideoLoader):
@@ -574,12 +719,26 @@ class BlockVideoLoader(VanillaVideoLoader):
     The decode thread preprocesses frames on the host, merges every
     ``exp_frame`` raw frames (uint8 max, same as MergeFunction.max) and
     appends the merged frame to the current block; completed
-    ``[block_frames, H, W]`` blocks go into a bounded queue, and the
-    consumer uploads each with one host->device copy. ``pop()`` still
-    yields single frames for API compatibility.
+    ``[block_frames, H, W]`` blocks go into a bounded queue. ``pop()``
+    still yields single frames for API compatibility.
 
-    Blocks are views of a pool of reused host buffers: a consumer must
+    In host mode (``device_put=False``) ``pop_block`` returns the blocks
+    themselves: views of a pool of reused host buffers, so a consumer must
     finish its copy of a block before it pops ``pool_size - 1`` more.
+
+    In device-put mode the loader uploads: an uploader thread copies each
+    completed block from the pinned pool to ``device`` on a stream of its
+    own, pads a short tail block there by repeating its last frame, and
+    hands ``(device tensor, n_real)`` pairs to ``pop_block``. The slot goes
+    back to the decode thread only once its copy has completed (the
+    uploader waits for the copy's event), and each tensor is marked as used
+    on the consumer's stream (``record_stream``), so the caching allocator
+    does not hand its memory to a later upload while the consumer's work
+    still reads it. Where the runtime frame is the raw frame or exactly
+    half of it (gray target, no mask, single-frame exposure), the
+    preprocess itself can run on the device (``_rawblockloop``): the
+    decode thread then only assembles raw frames, and the uploader runs
+    the cv2-exact downscale and gray conversion after the copy.
 
     With ``keep_color_stacks=True`` the thread additionally maintains a
     color max-stack per RECHECK_CHUNK merged frames, giving the recheck
@@ -588,6 +747,7 @@ class BlockVideoLoader(VanillaVideoLoader):
 
     def __init__(self, *args: Any, block_frames: Optional[int] = None,
                  maxsize: int = 4, keep_color_stacks: bool = False,
+                 device_put: bool = False, device="cpu",
                  **kwargs: Any) -> None:
         import os
         if block_frames is None:
@@ -597,29 +757,153 @@ class BlockVideoLoader(VanillaVideoLoader):
         self.block_queue: "queue.Queue" = queue.Queue(maxsize=maxsize)
         self.keep_color_stacks = keep_color_stacks
         self.color_stacks: dict[int, np.ndarray] = {}
-        # decode-thread stage accounting (read/preproc/merge/qput),
-        # surfaced into the pipeline performance dict
+        # host frames while the constructor estimates the exposure (an
+        # "auto" exposure pops frames); device-put mode is set after it
+        self.device_put_mode = False
+        self.device = device
+        # decode-thread stage accounting (read/preproc/merge/qput, and
+        # h2d_s/h2d_bytes of the uploads), surfaced into the pipeline
+        # performance dict
         self.stage_stats: dict = {}
         self._stop_requested = False
+        self._upload_queue = None
+        self._upload_thread = None
+        self._upload_stop = None
+        self._upload_stream = None
         super().__init__(*args, **kwargs)
+        # device-put mode: blocks are uploaded by the loader (see the class
+        # docstring) and the queue carries (device tensor, n_real) pairs.
+        # Opt-out: METDETPY_TPU_LOADER_DEVICE_PUT=0.
+        self.device_put_mode = device_put and os.environ.get(
+            "METDETPY_TPU_LOADER_DEVICE_PUT", "1") != "0"
+
+    @property
+    def _pinned(self) -> bool:
+        """Block buffers are pinned where the loader uploads to a card."""
+        return self.device_put_mode and str(self.device).startswith("cuda")
 
     def clear_queue(self):
         while not self.block_queue.empty():
             self.block_queue.get()
 
     def start(self):
+        # retire any uploader from a previous start() before resetting
+        # state. The uploader takes its queues and stop event as arguments,
+        # so even a stale thread that outlives the join can never forward
+        # blocks or an EOS into the fresh run's queues; it may still read
+        # pooled buffers though, so if it survives the bounded join the old
+        # buffer lease is abandoned rather than returned (see release()).
+        old_up = self._upload_thread
+        if old_up is not None and old_up.is_alive():
+            if self._upload_stop is not None:
+                self._upload_stop.set()
+            self._stop_requested = True
+            self.clear_queue()
+            old_up.join(timeout=PUT_TIMEOUT)
+            if old_up.is_alive() and getattr(self, "_leased_pool",
+                                             None) is not None:
+                self._leased_pool = None  # leak, don't alias
         self.clear_queue()
         self.color_stacks.clear()
         self.stage_stats.clear()
         self._pending = []
         self._peeked = None
+        self._dev_preproc_fn = None
         self._thread_exc = None
         self.read_stopped = False
         self._stop_requested = False
         self.status = True
         self.video.set_to(self.start_frame)
-        self.thread = threading.Thread(target=self._blockloop, daemon=True)
+        if self.device_put_mode and str(self.device).startswith("cuda"):
+            import torch
+            if self._upload_stream is None:
+                self._upload_stream = torch.cuda.Stream(device=self.device)
+        down2 = self._device_preproc_gate()
+        target = (self._rawblockloop
+                  if down2 is not None
+                  and self._transport_prefers_device_preproc(down2)
+                  else self._blockloop)
+        # async-upload mode: the decode thread hands completed blocks to a
+        # dedicated uploader thread, so decode and the upload overlap.
+        # Bounded to 3 queued blocks: a pooled slot is reused only after
+        # pool_size (>= 12) newer blocks, so 3 queued + 1 staging can
+        # never alias a slot the decoder is refilling.
+        self._upload_queue = None
+        self._upload_thread = None
+        self._upload_stop = None
+        if self.device_put_mode and os.environ.get(
+                "METDETPY_TPU_ASYNC_UPLOAD", "1") != "0":
+            self._upload_queue = queue.Queue(maxsize=3)
+            self._upload_stop = threading.Event()
+            self._upload_thread = threading.Thread(
+                target=self._uploadloop,
+                args=(self._upload_queue, self.block_queue,
+                      self._upload_stop),
+                daemon=True)
+            self._upload_thread.start()
+        self.thread = threading.Thread(target=target, daemon=True)
         self.thread.start()
+
+    def _transport_prefers_device_preproc(self, down2: bool) -> bool:
+        """Choose the preprocess placement from the measured link and host
+        speeds.
+
+        The device preprocess uploads raw blocks -- 4x the bytes at a 2:1
+        downscale -- trading host resize work for upload bandwidth. So the
+        automatic mode probes both once per start(): the upload's bytes
+        per second and the host's cv2 resize of one frame, and keeps the
+        extra upload only if the link moves the extra bytes faster than the
+        host resizes. ``METDETPY_TPU_DEVICE_PREPROC=force`` skips the probe
+        (always the device); ``=0`` is handled by the gate.
+        """
+        if not down2:
+            return True  # raw == runtime size: no extra bytes either way
+        if os.environ.get("METDETPY_TPU_DEVICE_PREPROC", "1") == "force":
+            return True
+        rw, rh = self.decode_size
+        w, h = self.runtime_size
+        t_host = _probe_host_resize_s(rh, rw, w, h)
+        bw = _probe_h2d_bps(rh, rw, self.device)
+        extra_s = (rw * rh - w * h) / bw  # per-frame extra upload time
+        prefer = extra_s < t_host
+        self.stage_stats["preproc_probe"] = {
+            "h2d_gbps": round(bw / 1e9, 3),
+            "host_resize_ms": round(t_host * 1e3, 3),
+            "extra_upload_ms": round(extra_s * 1e3, 3),
+            "device_preproc": prefer,
+        }
+        self.logger.debug(
+            f"preproc placement probe: link {bw / 1e9:.2f} GB/s, host "
+            f"resize {t_host * 1e3:.2f} ms/frame, extra upload "
+            f"{extra_s * 1e3:.2f} ms/frame -> "
+            f"{'device' if prefer else 'host'} preprocess")
+        return prefer
+
+    def _device_preproc_gate(self) -> Optional[bool]:
+        """Whether the whole preprocess can run on the device (cv2-exact:
+        2:1 downscale + BT.601 gray, ops.transforms.make_block_preprocess),
+        letting the decode thread assemble raw blocks (the host does only
+        the codec decode). Returns the down2 flag, or None for the host
+        path.
+
+        Conditions: device-put mode, gray target, no mask/debayer/colour
+        stacks, single-frame exposure, linear interpolation, and the
+        runtime size either equal to or exactly half the raw size."""
+        if not self.device_put_mode or self.keep_color_stacks:
+            return None
+        if os.environ.get("METDETPY_TPU_DEVICE_PREPROC", "1") == "0":
+            return None
+        if (not self.grayscale or self.preprocess.masked or self.debayer
+                or self.exp_frame != 1
+                or self.preprocess.interpolation != cv2.INTER_LINEAR):
+            return None
+        rw, rh = self.decode_size
+        w, h = self.runtime_size
+        if (rw, rh) == (w, h):
+            return False
+        if (rw, rh) == (2 * w, 2 * h):
+            return True
+        return None
 
     PREPROC_CHUNK = 16  # raw frames preprocessed in parallel per batch
 
@@ -641,6 +925,120 @@ class BlockVideoLoader(VanillaVideoLoader):
                 continue
             out.append(raw)
         return out
+
+    def _lease(self, block_shape: tuple, pool_size: int) -> list:
+        """Lease the block pool for this run (timed: pinning takes a while
+        on first use), to be returned in release()."""
+        import time as _time
+        t0 = _time.perf_counter()
+        pool = _lease_block_pool(block_shape, pool_size, self._pinned)
+        self.stage_stats["pool_s"] = _time.perf_counter() - t0
+        self.stage_stats["pool_bytes"] = int(np.prod(block_shape)) * len(
+            pool)
+        # returned to the cache in release(), once the consumer has
+        # drained the queue (queued blocks alias these buffers)
+        self._leased_pool = (block_shape, pool, self._pinned)
+        return pool
+
+    def _rawblockloop(self):
+        """Raw-block decode loop of the device preprocess: frames are
+        copied verbatim into raw-size block buffers; the upload runs the
+        exact resize and gray conversion on the device after its copy.
+        Colour sources upload 3x the gray bytes; unless
+        METDETPY_TPU_DEVICE_PREPROC_COLOR=1 they go to the host-preprocess
+        loop instead."""
+        import os as _os
+        import time as _time
+        from ..ops.transforms import make_block_preprocess
+        stats = self.stage_stats
+        stats.update({"read": 0.0, "preproc": 0.0, "merge": 0.0,
+                      "qput": 0.0})
+        loop_t0 = _time.perf_counter()
+        handed_off = False  # to _blockloop, which ends the stream itself
+        try:
+            src = getattr(self.video, "frames", None)
+            if (isinstance(self.video, NumpyVideoWrapper)
+                    and isinstance(src, np.ndarray) and src.ndim == 3
+                    and src.dtype == np.uint8 and src.flags.c_contiguous):
+                # zero-copy path for in-memory gray sources: blocks are
+                # views of the source array (the upload copies them), so
+                # the host does no per-frame work at all: no decode, no
+                # merge copy, no pool
+                down2 = self._device_preproc_gate()
+                self._dev_preproc_fn = make_block_preprocess(
+                    bool(down2), color=False)
+                stats["placement"] = "device"
+                start = self.video.get_video_pos()
+                total = min(self.iterations, src.shape[0] - start)
+                bf = self.block_frames
+                for a in range(start, start + total, bf):
+                    if self.read_stopped:
+                        break
+                    t0 = _time.perf_counter()
+                    self._put_block(src[a:min(a + bf, start + total)])
+                    stats["qput"] += _time.perf_counter() - t0
+                self.video.set_to(start + total)
+                return
+            first = self._read_raw_chunk(self.PREPROC_CHUNK)
+            if not first:
+                return
+            color = first[0].ndim == 3
+            if color and _os.environ.get(
+                    "METDETPY_TPU_DEVICE_PREPROC_COLOR", "0") != "1":
+                self._peeked = first
+                handed_off = True
+                self._blockloop()
+                return
+            down2 = self._device_preproc_gate()
+            self._dev_preproc_fn = make_block_preprocess(bool(down2), color)
+            stats["placement"] = "device"
+            rw, rh = self.decode_size
+            block_shape = ((self.block_frames, rh, rw, 3) if color
+                           else (self.block_frames, rh, rw))
+            pool_size = self.block_queue.maxsize + int(
+                _os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6)) + 2
+            block_pool = self._lease(block_shape, pool_size)
+            pool_idx = 0
+            block = block_pool[pool_idx]
+            n_in_block = 0
+            raw_left = self.iterations - len(first)
+            chunk = first
+            while True:
+                t0 = _time.perf_counter()
+                for raw in chunk:
+                    np.copyto(block[n_in_block], raw)
+                    n_in_block += 1
+                    if n_in_block == self.block_frames:
+                        stats["merge"] += _time.perf_counter() - t0
+                        t0 = _time.perf_counter()
+                        self._put_block(block)
+                        pool_idx = (pool_idx + 1) % pool_size
+                        block = block_pool[pool_idx]
+                        n_in_block = 0
+                        stats["qput"] += _time.perf_counter() - t0
+                        t0 = _time.perf_counter()
+                stats["merge"] += _time.perf_counter() - t0
+                if raw_left <= 0 or self.read_stopped:
+                    break
+                t0 = _time.perf_counter()
+                chunk = self._read_raw_chunk(min(self.PREPROC_CHUNK,
+                                                 raw_left))
+                stats["read"] += _time.perf_counter() - t0
+                if not chunk:
+                    break
+                raw_left -= len(chunk)
+            if n_in_block:
+                self._put_block(block[:n_in_block].copy())
+        except BaseException as exc:  # surface decode-thread failures
+            self._thread_exc = exc
+        finally:
+            if not handed_off:
+                stats["loop_wall"] = _time.perf_counter() - loop_t0
+                if _os.environ.get("METDETPY_TPU_LOADER_STATS"):
+                    self.logger.info("loader stats (raw): " + ", ".join(
+                        f"{k}={v}" for k, v in stats.items()))
+                self.read_stopped = True
+                self._put_eos()
 
     def _blockloop(self):
         import os as _os
@@ -666,10 +1064,8 @@ class BlockVideoLoader(VanillaVideoLoader):
             else (self.block_frames, h, w, 3)
         pool_size = self.block_queue.maxsize + int(
             _os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6)) + 2
-        block_pool = _lease_block_pool(block_shape, pool_size)
-        # returned to the cache in release(), once the consumer has
-        # drained the queue (queued blocks alias these buffers)
-        self._leased_pool = (block_shape, block_pool)
+        block_pool = self._lease(block_shape, pool_size)
+        stats["placement"] = "host"
         pool_idx = 0
         block = block_pool[pool_idx]
         n_in_block = 0
@@ -854,7 +1250,7 @@ class BlockVideoLoader(VanillaVideoLoader):
             stats["loop_wall"] = _time.perf_counter() - loop_t0
             if _os.environ.get("METDETPY_TPU_LOADER_STATS"):
                 self.logger.info("loader stats: " + ", ".join(
-                    f"{k}={v:.2f}" for k, v in stats.items()))
+                    f"{k}={v}" for k, v in stats.items()))
             if pool is not None:
                 pool.shutdown(wait=False)
             self.read_stopped = True
@@ -864,31 +1260,144 @@ class BlockVideoLoader(VanillaVideoLoader):
         """Queue a completed block with indefinite backpressure: the
         consumer can legitimately stall (a first kernel build takes
         seconds), so a bounded put timeout must retry, not kill the decode
-        thread. Stops promptly when the loader is stopped."""
+        thread. Stops promptly when the loader is stopped.
+
+        In device-put mode the queue carries (device tensor, n_real)
+        pairs; the upload runs in the uploader thread when one is active
+        (async-upload mode, overlapping decode with the copy) or inline
+        here otherwise."""
+        if self.device_put_mode:
+            uq = self._upload_queue
+            if uq is not None:
+                item = (block, block.shape[0])
+                while True:
+                    try:
+                        uq.put(item, timeout=PUT_TIMEOUT)
+                        return
+                    except queue.Full:
+                        if self.read_stopped:
+                            raise
+            item = self._stage_block(block)
+        else:
+            item = block
         while True:
             try:
-                self.block_queue.put(block, timeout=PUT_TIMEOUT)
+                self.block_queue.put(item, timeout=PUT_TIMEOUT)
                 return
             except queue.Full:
                 if self.read_stopped:
                     raise
 
+    def _stage_block(self, block: np.ndarray) -> tuple:
+        """Upload one block (and run the device preprocess, if any); returns
+        ``(tensor, n_real)`` once the copy has completed, so the host
+        buffer may be reused at once.
+
+        On a card the copy runs on the loader's own stream, from the pinned
+        pool without waiting for the host; a short tail block is padded to
+        the fixed block shape on the device by repeating its last frame.
+        The result is marked as used on the consumer's (default) stream, so
+        its memory is not reused while the consumer's work reads it. On the
+        CPU the block is copied into a fresh tensor."""
+        import time as _t
+
+        import torch
+        n_real = block.shape[0]
+        dev = torch.device(self.device)
+        src = torch.from_numpy(block)
+        t0 = _t.perf_counter()
+        shape = (self.block_frames,) + tuple(block.shape[1:])
+        if dev.type == "cuda":
+            stream = self._upload_stream
+            with torch.cuda.stream(stream):
+                out = torch.empty(shape, dtype=torch.uint8, device=dev)
+                out[:n_real].copy_(src, non_blocking=True)
+                if n_real < self.block_frames:
+                    out[n_real:] = out[n_real - 1:n_real]
+                if self._dev_preproc_fn is not None:
+                    out = self._dev_preproc_fn(out)
+                done = torch.cuda.Event()
+                done.record(stream)
+            out.record_stream(torch.cuda.default_stream(dev))
+            done.synchronize()
+        else:
+            out = torch.empty(shape, dtype=torch.uint8)
+            out[:n_real] = src
+            if n_real < self.block_frames:
+                out[n_real:] = out[n_real - 1:n_real]
+            if self._dev_preproc_fn is not None:
+                out = self._dev_preproc_fn(out)
+        st = self.stage_stats
+        st["h2d_s"] = st.get("h2d_s", 0.0) + _t.perf_counter() - t0
+        st["h2d_bytes"] = st.get("h2d_bytes", 0) + block.nbytes
+        return (out, n_real)
+
+    def _uploadloop(self, upload_queue, block_queue, stop_evt):
+        """Uploader thread: stage blocks from the decode thread onto the
+        device and forward them in FIFO order. The decode loops always
+        deliver an EOS sentinel (None) through the upload queue, which this
+        loop turns into the block queue's EOS, so the sentinel can never
+        overtake an upload in flight.
+
+        Queues and the stop event are arguments bound at thread creation: a
+        retired uploader that outlives its bounded join keeps talking to its
+        own run's queues and can never steal blocks from, reorder, or
+        inject a stray EOS into a successor run."""
+        try:
+            while True:
+                try:
+                    item = upload_queue.get(timeout=PUT_TIMEOUT)
+                except queue.Empty:
+                    if stop_evt.is_set():
+                        return
+                    continue  # the decode loop always delivers the sentinel
+                if item is None:
+                    return
+                staged = self._stage_block(item[0])
+                while True:
+                    try:
+                        block_queue.put(staged, timeout=PUT_TIMEOUT)
+                        break
+                    except queue.Full:
+                        if stop_evt.is_set():
+                            return
+        except BaseException as exc:  # surface upload failures to pop_block
+            if not stop_evt.is_set():
+                self._thread_exc = exc
+        finally:
+            # a retired thread must not signal EOS: its successor owns the
+            # stream now
+            for _ in range(120):
+                if stop_evt.is_set():
+                    break
+                try:
+                    block_queue.put(None, timeout=PUT_TIMEOUT)
+                    break
+                except queue.Full:
+                    pass
+
     def _put_eos(self):
         """Deliver the end-of-stream sentinel. It must not be dropped:
-        with a fast producer the queue is routinely full here, and a
-        lost None makes the consumer eat the full pop timeout at end of
-        stream."""
+        with a fast producer the queue is routinely full here, and a lost
+        None makes the consumer eat the full pop timeout at end of stream.
+        In async-upload mode it goes through the upload queue, so it stays
+        behind the uploads in flight."""
+        q = self._upload_queue
+        if q is None:
+            q = self.block_queue
         for _ in range(120):
             try:
-                self.block_queue.put(None, timeout=PUT_TIMEOUT)
+                q.put(None, timeout=PUT_TIMEOUT)
                 return
             except queue.Full:
                 continue
 
     def pop_block(self):
-        """Return the next [T, H, W(, 3)] uint8 block of merged frames, or
-        None at end of stream. Re-raises any decode-thread failure instead
-        of silently ending the stream."""
+        """Return the next [T, H, W(, 3)] uint8 block of merged frames --
+        or, in device-put mode, a (device tensor of block_frames frames,
+        n_real) pair -- or None at end of stream. Re-raises any
+        decode-thread or upload failure instead of silently ending the
+        stream."""
         try:
             item = self.block_queue.get(timeout=GET_TIMEOUT * 6)
         except queue.Empty:
@@ -921,6 +1430,8 @@ class BlockVideoLoader(VanillaVideoLoader):
 
     def pop(self):
         """Single merged frame, assembled from block reads (compat path)."""
+        assert not self.device_put_mode, (
+            "pop() serves host frames; disable device_put mode")
         if not hasattr(self, "_pending"):
             self._pending: list[np.ndarray] = []
         while not self._pending:
@@ -934,18 +1445,286 @@ class BlockVideoLoader(VanillaVideoLoader):
     def stop(self):
         self._stop_requested = True
         self.read_stopped = True
+        if self._upload_stop is not None:
+            self._upload_stop.set()
 
     def release(self):
         super().release()
         self.clear_queue()
+        # the uploader may still hold references to pooled slots; wait for
+        # it before handing the pool buffers back to the lease cache
+        up = self._upload_thread
+        if up is not None and up.is_alive():
+            if self._upload_stop is not None:
+                self._upload_stop.set()
+            self._stop_requested = True
+            up.join(timeout=PUT_TIMEOUT)
         leased = getattr(self, "_leased_pool", None)
         if leased is not None:
             self._leased_pool = None
+            if up is not None and up.is_alive():
+                # a stalled uploader may still read these slots: abandon
+                # the lease instead of recycling aliased buffers
+                return
             _return_block_pool(*leased)
 
     @property
     def stopped(self) -> bool:
         return self.read_stopped and self.block_queue.empty()
+
+
+def _process_decode_worker(wrapper_cls, video_name, hwaccel, start_frame,
+                           n_raw_total, exp_frame, preprocess, block_frames,
+                           block_shape, shm_name, n_slots, free_q, ready_q,
+                           stop_evt, continue_on_err, keep_color,
+                           recheck_chunk):
+    """Decode/preprocess/merge loop running in a separate process, writing
+    completed blocks into a shared-memory ring (the block analog of the
+    reference's RawArray frame ring, MetLib/videoloader.py:634-793).
+
+    Protocol: the parent pre-fills ``free_q`` with slot ids; the worker
+    blocks on a free slot, fills it, and posts ("block", slot, n_frames) on
+    ``ready_q``. Colour recheck stacks travel as ("stack", idx, array)
+    messages; EOS is ("eos", cuda_initialized); failures are ("error",
+    repr).
+
+    The worker is host code: it decodes with cv2 and numpy, never touches
+    the card and creates no CUDA state (the parent uploads). Its EOS says
+    whether CUDA was initialised in it, and the parent refuses a stream
+    whose worker did.
+    """
+    import numpy as _np
+    from multiprocessing import shared_memory as _shm
+    shm = None
+    wrapper = None
+    try:
+        shm = _shm.SharedMemory(name=shm_name)
+        ring = _np.ndarray((n_slots,) + block_shape, _np.uint8,
+                           buffer=shm.buf)
+        wrapper = wrapper_cls(video_name, hwaccel=hwaccel)
+        wrapper.set_to(start_frame)
+        slot = free_q.get()
+        n_in_block = 0
+        merged_idx = 0
+        color_acc = None
+        group: list = []
+        cgroup: list = []
+        n_in_group = 0
+        scratch3 = None
+        merge_scratch = None
+        raw_left = n_raw_total
+        while raw_left > 0 and not stop_evt.is_set():
+            ok, raw = wrapper.read()
+            if not ok or raw is None:
+                if continue_on_err:
+                    raw_left -= 1
+                    continue
+                break
+            raw_left -= 1
+            if keep_color:
+                g, c = preprocess(raw, keep_color=True)
+                group.append(g)
+                cgroup.append(c)
+                if len(group) < exp_frame:
+                    continue
+                merged = _np.array(group[0])
+                for f in group[1:]:
+                    _np.maximum(merged, f, out=merged)
+                group = []
+                ring[slot, n_in_block] = merged
+                color = _np.array(cgroup[0])
+                for f in cgroup[1:]:
+                    _np.maximum(color, f, out=color)
+                cgroup = []
+                color_acc = (color if color_acc is None
+                             else _np.maximum(color_acc, color))
+                if (merged_idx + 1) % recheck_chunk == 0:
+                    ready_q.put(("stack", merged_idx // recheck_chunk,
+                                 color_acc))
+                    color_acc = None
+            else:
+                # allocation-free hot path: preprocess straight into the
+                # shared-memory ring slot (cv2 dst= kernels; mirrors the
+                # in-process loader's into() path)
+                dst = ring[slot, n_in_block]
+                if (scratch3 is None and raw.ndim == 3
+                        and preprocess.resize and preprocess.grayscale):
+                    scratch3 = _np.empty(
+                        (preprocess.dsize[1], preprocess.dsize[0], 3),
+                        _np.uint8)
+                if n_in_group == 0:
+                    preprocess.into(raw, dst, scratch3)
+                else:
+                    if merge_scratch is None:
+                        merge_scratch = _np.empty_like(dst)
+                    preprocess.into(raw, merge_scratch, scratch3)
+                    _np.maximum(dst, merge_scratch, out=dst)
+                n_in_group += 1
+                if n_in_group < exp_frame:
+                    continue
+                n_in_group = 0
+            n_in_block += 1
+            merged_idx += 1
+            if n_in_block == block_frames:
+                ready_q.put(("block", slot, n_in_block))
+                n_in_block = 0
+                slot = free_q.get()
+        if n_in_block and not stop_evt.is_set():
+            ready_q.put(("block", slot, n_in_block))
+        if keep_color and color_acc is not None:
+            ready_q.put(("stack", merged_idx // recheck_chunk, color_acc))
+        import sys as _sys
+        torch_mod = _sys.modules.get("torch")
+        ready_q.put(("eos", bool(torch_mod is not None
+                                 and torch_mod.cuda.is_initialized())))
+    except Exception as exc:  # surface child failures to the parent
+        try:
+            ready_q.put(("error", repr(exc)))
+        except Exception:
+            pass
+    finally:
+        if wrapper is not None:
+            try:
+                wrapper.release()
+            except Exception:
+                pass
+        if shm is not None:
+            shm.close()
+
+
+class ProcessVideoLoader(BlockVideoLoader):
+    """Subprocess decode with a shared-memory block ring.
+
+    The GIL-escaping analog of the reference's ProcessVideoLoader
+    (MetLib/videoloader.py:634-793): decode + preprocess + exposure merge
+    run in a child process started with the ``spawn`` method (this process
+    may hold CUDA state and threads, which a forked child must not
+    inherit); completed [block_frames, H, W(,3)] blocks are exchanged
+    through POSIX shared memory with a slot free-list, so the only
+    per-block parent cost is one copy out of the ring. The child never
+    touches the card; blocks are host arrays and the consumer uploads them
+    (device-put mode stays off).
+    """
+
+    def _maybe_scaled_decode(self) -> list[int]:
+        # the child process re-creates the wrapper from its class, so an
+        # in-place wrapper swap here would not apply there
+        return list(self.raw_size)
+
+    def __init__(self, *args: Any, ring_slots: int = 4, **kwargs: Any
+                 ) -> None:
+        self.ring_slots = ring_slots
+        self._proc = None
+        self._shm = None
+        super().__init__(*args, **kwargs)
+        self.device_put_mode = False
+        self.worker_cuda_initialized: Optional[bool] = None
+
+    def start(self):
+        import multiprocessing as mp
+        from multiprocessing import shared_memory
+
+        self.color_stacks.clear()
+        self._pending = []
+        self._thread_exc = None
+        self.read_stopped = False
+        self._eos = False
+        self.worker_cuda_initialized = None
+
+        e = self.exp_frame
+        w, h = self.runtime_size
+        block_shape = ((self.block_frames, h, w) if self.grayscale
+                       else (self.block_frames, h, w, 3))
+        nbytes = int(np.prod((self.ring_slots,) + block_shape))
+        ctx = mp.get_context("spawn")
+        self._shm = shared_memory.SharedMemory(create=True, size=nbytes)
+        self._ring = np.ndarray((self.ring_slots,) + block_shape, np.uint8,
+                                buffer=self._shm.buf)
+        self._free_q = ctx.Queue()
+        self._ready_q = ctx.Queue()
+        self._stop_evt = ctx.Event()
+        for s in range(self.ring_slots):
+            self._free_q.put(s)
+        n_raw_total = (self.iterations // e) * e
+        self._proc = ctx.Process(
+            target=_process_decode_worker,
+            args=(self.video_wrapper, self.video_name, self.hwaccel,
+                  self.start_frame, n_raw_total, e, self.preprocess,
+                  self.block_frames, block_shape, self._shm.name,
+                  self.ring_slots, self._free_q, self._ready_q,
+                  self._stop_evt, self.continue_on_err,
+                  self.keep_color_stacks, RECHECK_CHUNK),
+            daemon=True)
+        self._proc.start()
+
+    def pop_block(self) -> Optional[np.ndarray]:
+        if getattr(self, "_eos", False):
+            return None
+        while True:
+            try:
+                msg = self._ready_q.get(timeout=GET_TIMEOUT * 6)
+            except queue.Empty:
+                # queue silence is EOS or failure only if the worker died
+                # without posting a sentinel; a live worker may stall
+                if self._proc is not None and self._proc.is_alive():
+                    continue
+                self.read_stopped = True
+                if self._proc is not None:
+                    raise RuntimeError(
+                        "video decode process exited without EOS "
+                        f"(exitcode={self._proc.exitcode})")
+                return None
+            kind = msg[0]
+            if kind == "block":
+                _, slot, n = msg
+                out = self._ring[slot, :n].copy()
+                self._free_q.put(slot)
+                return out
+            if kind == "stack":
+                self.color_stacks[msg[1]] = msg[2]
+                continue
+            if kind == "eos":
+                self._eos = True
+                self.read_stopped = True
+                self.worker_cuda_initialized = msg[1]
+                if msg[1]:
+                    raise RuntimeError("the video decode process "
+                                       "initialised CUDA")
+                return None
+            if kind == "error":
+                self._eos = True
+                self.read_stopped = True
+                raise RuntimeError(f"video decode process failed: {msg[1]}")
+
+    def stop(self):
+        self.read_stopped = True
+        if getattr(self, "_stop_evt", None) is not None:
+            self._stop_evt.set()
+
+    def release(self):
+        self.stop()
+        proc, self._proc = self._proc, None
+        if proc is not None:
+            proc.join(timeout=5)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=5)
+        shm, self._shm = self._shm, None
+        if shm is not None:
+            self._ring = None
+            shm.close()
+            try:
+                shm.unlink()
+            except FileNotFoundError:
+                pass
+        self.video.release()
+
+    @property
+    def stopped(self) -> bool:
+        return self.read_stopped
+
+    def clear_queue(self):
+        pass
 
 
 # ---------------------------------------------------------------------------

@@ -238,23 +238,23 @@ class MetExporter:
 
 def _loader_stack_provider(video_loader, logger) -> StackProvider:
     """Stack provider that re-reads frames from a (second) loader -- the
-    compat path for per-frame loaders; BlockVideoLoader users should pass
-    its recheck_stack instead."""
+    path of the per-frame loaders; block loaders give their recheck_stack
+    instead. A clip with no frame in range gives None (the clip passes
+    unchecked, logged); an exception of the loader propagates, ends the
+    export thread and, through ``MetExporter.join``, the run."""
 
     def provider(start_frame: int, end_frame: int) -> Optional[np.ndarray]:
+        video_loader.reset(start_frame=start_frame, end_frame=end_frame)
+        acc = None
+        video_loader.start()
         try:
-            video_loader.reset(start_frame=start_frame, end_frame=end_frame)
-            acc = None
-            video_loader.start()
             for _ in range(video_loader.iterations):
                 frame = video_loader.pop()
                 if frame is None:
                     break
                 acc = frame if acc is None else np.maximum(acc, frame)
+        finally:
             video_loader.stop()
-            return acc
-        except Exception as e:
-            logger.error(f"stack provider failed: {e!r}")
-            return None
+        return acc
 
     return provider

@@ -331,3 +331,72 @@ def test_preset_with_recheck_on_card_matches_cpu(cuda_device, monkeypatch,
         assert abs(a.score - b.score) <= 0.03
         assert a.recheck_score is not None
         assert abs(a.recheck_score - b.recheck_score) <= 0.03
+
+
+# -- the loader's device feed and the photo batch upload ----------------------
+
+def _feed_blocks(frames, device_put, monkeypatch, **env):
+    from metdetpy_tpu_torch.io.videoloader import BlockVideoLoader
+    from metdetpy_tpu_torch.io.videowrapper import NumpyVideoWrapper
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ld = BlockVideoLoader(NumpyVideoWrapper, frames, resize_option=[48, 32],
+                          exp_option="real-time", merge_func="max",
+                          grayscale=True, block_frames=8,
+                          device_put=device_put, device="cuda")
+    ld.start()
+    out = []
+    while (item := ld.pop_block()) is not None:
+        if device_put:
+            t, n = item
+            assert t.is_cuda and t.shape[0] == 8
+            assert bool((t[n:] == t[n - 1]).all())
+            out.append(t[:n].cpu().numpy())
+        else:
+            out.append(np.array(item))
+    stats = dict(ld.stage_stats)
+    pinned = ld._pinned
+    ld.release()
+    return np.concatenate(out), stats, pinned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preproc", ["0", "force"])
+def test_device_feed_on_card_equals_host_blocks(cuda_device, monkeypatch,
+                                                preproc):
+    """The loader's uploads (pinned pool and side stream with the host
+    preprocess; raw blocks and the device 2:1 preprocess when forced)
+    give the host path's blocks, the tail padded on the card."""
+    frames = np.random.default_rng(SEED).integers(0, 255, (21, 64, 96, 3),
+                                                  np.uint8)
+    want, _, _ = _feed_blocks(frames, False, monkeypatch)
+    got, stats, pinned = _feed_blocks(
+        frames, True, monkeypatch, METDETPY_TPU_DEVICE_PREPROC=preproc,
+        METDETPY_TPU_DEVICE_PREPROC_COLOR="1")
+    np.testing.assert_array_equal(got, want)
+    assert stats["h2d_bytes"] > 0
+    assert stats["placement"] == ("host" if preproc == "0" else "device")
+    assert pinned
+
+
+@pytest.mark.cuda
+def test_batch_pipeline_on_card_matches_forward_batch(cuda_device):
+    """The photo batch through the pinned upload and the device path gives
+    forward_batch's records on the same card."""
+    from metdetpy_tpu_torch.models.pipeline import BatchPipeline
+    from metdetpy_tpu_torch.models.yolo import YOLOModel
+    m = YOLOModel(weight_path=relative2abs_path(
+        "./weights/yolov5s_v5.flax.npz"), nms=True, input_hw=(96, 96),
+        multiscale_pred=1, device="cuda")
+    imgs = generate_meteor_video(width=160, height=128, fps=25.0,
+                                 duration_sec=0.16, n_stars=30, color=True,
+                                 seed=3)
+    pipe = BatchPipeline(m, inflight=1)
+    assert pipe.submit(list(range(len(imgs))), imgs) == []
+    got = pipe.drain()
+    want = m.forward_batch(imgs)
+    assert len(got) == len(imgs)
+    for (_, (gb, gc)), (wb, wc) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(gb), np.asarray(wb))
+        np.testing.assert_allclose(np.asarray(gc), np.asarray(wc),
+                                   atol=1e-6)

@@ -96,14 +96,21 @@ def test_device_failure_recovery(synth_frames, monkeypatch):
 
 
 def test_unported_options_raise(synth_frames):
-    cfg = _cfg(TMainDetectCfg)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        detect_video(synth_frames, None, cfg, checkpoint_path="x.ckpt",
+    """What is still to be ported raises: the time-sharded mode, the video
+    writers (they come with ClipToolkit) and a batch sharded over devices.
+    Checkpoint/resume is ported (tests/test_torch_port_checkpoint.py); a
+    resume without a checkpoint file is refused."""
+    from metdetpy_tpu_torch import get_writer
+    from metdetpy_tpu_torch.models.pipeline import BatchPipeline
+    with pytest.raises(ValueError, match="checkpoint_path"):
+        detect_video(synth_frames, None, _cfg(TMainDetectCfg), resume=True,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        detect_video(synth_frames, None, cfg, resume=True, device="cpu")
     with pytest.raises(SystemExit):
         cli_main(["x.avi", "--temporal-shards", "4", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_writer("FFMpegVideoWriter")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        BatchPipeline(None, sharding=object())
 
 
 @pytest.fixture(scope="module")

@@ -141,13 +141,12 @@ def test_load_state_numpy_checks_shapes_and_reset():
 
 
 def test_registry_and_device_contract(monkeypatch):
-    # every detector is ported; the loaders still to come raise
+    # every detector and every loader is ported
     for name in ("ClassicDetector", "DiffAreaGuidingDetecor", "MLDetector"):
         assert get_detector(name).__name__ == name
     for name in ("ThreadVideoLoader", "ProcessVideoLoader",
-                 "VanillaVideoLoader"):
-        with pytest.raises(NotImplementedError, match=name):
-            get_loader(name)
+                 "VanillaVideoLoader", "BlockVideoLoader"):
+        assert get_loader(name).__name__ == name
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
