@@ -65,12 +65,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    whole clip, gives the uninterrupted run's METEOR (start time and box);
    once more from a checkpoint written by a CPU run.
 11. Photo: ``python -m metdetpy_tpu_torch.photo``'s entry on a folder of
-   64 colour 1920x1080 JPEGs (batches of 32), on one of them alone and on
-   a 64-frame 960x540 timelapse AVI, on the card, with images per second;
-   the records equal the CPU's: boxes paired within 2 px and 0.03 on
-   scores, a box left unpaired only at the objectness threshold (score at
-   most sqrt(0.25) + 0.03), where bfloat16 on the card and on the CPU may
-   fall on either side.
+   64 colour 1920x1080 JPEGs (batches of 32; a streak in every fourth, a
+   long one of 15-25% of the width in every 16th), on one of them alone
+   and on a 64-frame 960x540 timelapse AVI, on the card, with images per
+   second; the bfloat16 records agree with the CPU's: per image, both
+   ways, each box above the objectness threshold's band (score above
+   sqrt(0.25) + 0.03) overlaps a box of the same class on the other side,
+   and the top scores of each class agree within 0.03 (bfloat16 on the
+   card and on the CPU shifts boxes by a few pixels and keeps other links
+   of a streak's chain of boxes, as a float32 run of the model does too).
+12. Denoise and clip export: device MFNR of 64 colour 1920x1080 frames
+   (a synthetic sky, one meteor, in memory through the port's
+   ``ThreadVideoLoader``) with each background (``mean``, ``median``,
+   ``sigma-clipping``, ``med-of-med``, full upload; ``mean`` also
+   host-reduced with the foreground window), the placement asked for,
+   frames per second and the stage seconds and bytes; the same at 960x540
+   held within +/-1 gray level in under 2% of pixels of the host path;
+   ``stack_median`` forced to the card on the 1080p stack, equal to the
+   host median, both timed; ``python -m metdetpy_tpu_torch.clip`` on a
+   960x540 MJPG AVI with two requests on the card and on the CPU: max
+   stack and simple denoise equal, mfnr-mix within +/-1 in under 2%,
+   video with bboxes of the requested frame counts.
 
 Phases 3 and 6 run the presets as ``detect_video`` sets them up: the
 loader uploads each block from pinned memory in its uploader thread; they
@@ -82,9 +97,11 @@ and as the last line ``{"ok": true, "device": {...}}``. It imports nothing
 of JAX or of the JAX package, and exits non-zero without a card.
 """
 
+import contextlib
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -744,15 +761,27 @@ def phase_classic(card: str) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def env_set(env: dict):
+    """Set environment variables for the block only."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _run_m3(frames, cfg, dev: str, env: dict = None, **kw):
     """detect_video with the launch counts set to 0 just before it; returns
     (mdrf, launches, wall seconds). ``env`` is set for the run only."""
     from metdetpy_tpu_torch.api import detect_video
     from metdetpy_tpu_torch.ops import kernels as K
-    env = env or {}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with env_set(env or {}):
         K.reset_launch_counts()
         t0 = time.perf_counter()
         mdrf = detect_video(frames, None, cfg, work_mode="backend",
@@ -760,12 +789,6 @@ def _run_m3(frames, cfg, dev: str, env: dict = None, **kw):
         if dev == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     return mdrf, dict(K.LAUNCHES), wall
 
 
@@ -904,21 +927,23 @@ def phase_checkpoint(card: str) -> None:
               f"uninterrupted run's", flush=True)
 
 
-def _photo_sky(rng, w: int, h: int, streak: bool) -> np.ndarray:
-    """A colour night-sky photo: noise, stars and, if asked, a short
-    streak. (A streak hundreds of pixels long comes out of the tile pyramid
-    as a chain of boxes with near-equal scores, where bfloat16 rounding on
-    the card and on the CPU lets the multiscale NMS keep different links.)
-    """
+def _photo_sky(rng, w: int, h: int, streak: bool,
+               long: bool = False) -> np.ndarray:
+    """A colour night-sky photo: noise, stars and, if asked, a streak:
+    short (3-7% of the width), or ``long`` (15-25%, hundreds of pixels at
+    1920x1080), which the tile pyramid returns as a chain of boxes with
+    near-equal scores."""
     import cv2
     img = rng.normal(14, 3, (h, w)).astype(np.float32)
     for x, y, a in zip(rng.uniform(0, w, 300), rng.uniform(0, h, 300),
                        rng.uniform(30, 200, 300)):
         cv2.circle(img, (int(x), int(y)), 1, float(a), -1)
     if streak:
-        x1, y1 = rng.uniform(0.05 * w, 0.8 * w), rng.uniform(0.05 * h,
-                                                              0.7 * h)
-        length, ang = rng.uniform(0.03 * w, 0.07 * w), rng.uniform(0.2, 1.3)
+        x1, y1 = rng.uniform(0.05 * w, 0.6 * w), rng.uniform(0.05 * h,
+                                                             0.5 * h)
+        span = (0.15, 0.25) if long else (0.03, 0.07)
+        length, ang = rng.uniform(span[0] * w, span[1] * w), rng.uniform(
+            0.2, 0.9 if long else 1.3)
         x2, y2 = x1 + length * np.cos(ang), y1 + length * np.sin(ang)
         cv2.line(img, (int(x1), int(y1)), (int(x2), int(y2)), 220.0, 3)
         img = cv2.GaussianBlur(img, (5, 5), 1.2)
@@ -940,35 +965,54 @@ def _photo_records(argv, dev: str) -> tuple[dict, float]:
     return data, wall
 
 
-def _photo_close(name: str, got: dict, want: dict) -> None:
-    """Records on the card against the CPU's: per image (or timelapse
-    frame), each box paired with one of the other side of the same class
-    within 2 px and 0.03 in score. A box may stay unpaired only at the
-    objectness threshold, where the two bfloat16 bodies may fall on either
-    side: its score sqrt(cls * obj) is then at most sqrt(0.25) + 0.03."""
-    def boxes(data):
+def _photo_boxes(data) -> dict:
+    """{image (or timelapse frame): [(box, class, score), ...]}."""
+    out = {}
+    for r in data["results"]:
+        key = r.get("img_filename") or r.get("num_frame")
+        out[key] = list(zip(r["boxes"], r["preds"], map(float, r["prob"])))
+    return out
+
+
+def _linked(boxes, others) -> bool:
+    """Every box of ``boxes`` scoring above 0.53 overlaps a box of the
+    same class in ``others``."""
+    return all(any(p == pred and a1 <= x2 and x1 <= a2 and b1 <= y2
+                   and y1 <= b2 for (a1, b1, a2, b2), p, _ in others)
+               for (x1, y1, x2, y2), pred, prob in boxes if prob > 0.53)
+
+
+def _top_scores_close(a, b) -> bool:
+    """Per class, the top scores above 0.53 agree within 0.03 (a class
+    above it on one side is above it on the other)."""
+    def top(boxes):
         out = {}
-        for r in data["results"]:
-            key = r.get("img_filename") or r.get("num_frame")
-            out[key] = list(zip(r["boxes"], r["preds"],
-                                map(float, r["prob"])))
-        return out
-    g, w = boxes(got), boxes(want)
-    bad = got["type"] != want["type"]
-    for key in set(g) | set(w):
-        left = list(w.get(key, []))
-        for box, pred, prob in g.get(key, []):
-            near = [c for c in left if c[1] == pred
-                    and max(abs(p - q) for p, q in zip(box, c[0])) <= 2
-                    and abs(prob - c[2]) <= 0.03 + 1e-9]
-            if near:
-                left.remove(near[0])
-            elif prob > 0.53:
-                bad = True
-        bad = bad or any(c[2] > 0.53 for c in left)
-    if bad:
-        fail(f"photo, {name}: records on the card differ from the CPU's: "
-             f"{got['results']} vs {want['results']}")
+        for _, pred, prob in boxes:
+            out[pred] = max(out.get(pred, 0.0), prob)
+        return {k: v for k, v in out.items() if v > 0.53}
+    ta, tb = top(a), top(b)
+    return set(ta) == set(tb) and all(abs(ta[k] - tb[k]) <= 0.03 + 1e-9
+                                      for k in ta)
+
+
+def _photo_close(name: str, got: dict, want: dict) -> None:
+    """The entry point's bfloat16 records on the card against the CPU's,
+    per image (or timelapse frame), both ways: each box scoring above
+    sqrt(0.25) + 0.03 overlaps a box of the same class on the other side,
+    and the top scores of each class agree within 0.03. The boxes are not
+    paired one to one: bfloat16 on the card and on the CPU rounds the
+    boxes apart by a few pixels and keeps other links of a streak's chain
+    of boxes (a 6 px shift at an equal score; a link kept at 0.77 on the
+    CPU where the card kept a neighbour at 0.52). A float32 run of the
+    model keeps other links too (a middle link at 0.65 on the CPU only)."""
+    g, w = _photo_boxes(got), _photo_boxes(want)
+    bad = [k for k in set(g) | set(w)
+           if not (_linked(g.get(k, []), w.get(k, []))
+                   and _linked(w.get(k, []), g.get(k, []))
+                   and _top_scores_close(g.get(k, []), w.get(k, [])))]
+    if got["type"] != want["type"] or bad:
+        fail(f"photo, {name}: records on the card differ from the CPU's "
+             f"at {bad}: {got['results']} vs {want['results']}")
 
 
 def phase_photo(card: str) -> None:
@@ -980,9 +1024,10 @@ def phase_photo(card: str) -> None:
     rng = np.random.default_rng(SEED + 3)
     folder = os.path.join(FILES, "photos")
     os.makedirs(folder, exist_ok=True)
-    for i in range(64):
+    for i in range(64):   # a streak in every fourth, long in every 16th
         cv2.imwrite(os.path.join(folder, f"sky_{i:02d}.jpg"),
-                    _photo_sky(rng, 2 * W, 2 * H, i % 4 == 0),
+                    _photo_sky(rng, 2 * W, 2 * H, i % 4 == 0,
+                               long=i % 16 == 0),
                     [cv2.IMWRITE_JPEG_QUALITY, 95])
     # timelapse frames are photos of their own, a short streak in every
     # fourth (a synthetic video's meteor leaves a glowing trail, the long
@@ -1004,10 +1049,211 @@ def phase_photo(card: str) -> None:
             fail("photo: no detection in the folder")
         print(f"photo, {name}: {n / wall:.2f} images/s on {card} "
               f"({wall:.3f} s with the model's load, {nets} network "
-              f"forwards); {len(got['results'])} record(s) equal to the "
-              f"CPU's ({cpu_wall:.1f} s) within 2 px and 0.03", flush=True)
-    import shutil
+              f"forwards); {len(got['results'])} record(s) agree with the "
+              f"CPU's ({cpu_wall:.1f} s): linked boxes, top scores within "
+              f"0.03", flush=True)
+
+
+BG_ALGOS = ("mean", "median", "sigma-clipping", "med-of-med")
+
+
+def _denoise_cfg(bg: str):
+    """global/clip_cfg.json's denoise options, MFNR with background
+    ``bg`` (connect_lines on, as shipped)."""
+    from metdetpy_tpu_torch.structs import ClipCfg
+    from metdetpy_tpu_torch.utils import relative2abs_path
+    dn = ClipCfg.from_json_file(
+        relative2abs_path("./global/clip_cfg.json")).image_denoise
+    dn.algorithm = "mfnr-mix"
+    dn.mfnr_param.bg_algorithm = bg
+    return dn
+
+
+def _mfnr(frames, bg: str, dev: str, env: dict) -> tuple:
+    """mfnr_mix_stacker through the port's ThreadVideoLoader on an
+    in-memory clip; returns (image, last_run_stats, wall seconds)."""
+    from metdetpy_tpu_torch.io.videoloader import ThreadVideoLoader
+    from metdetpy_tpu_torch.io.videowrapper import NumpyVideoWrapper
+    from metdetpy_tpu_torch.ops import stack, stack_device
+    loader = ThreadVideoLoader(NumpyVideoWrapper, frames,
+                               exp_option="real-time", merge_func="max",
+                               grayscale=False)
+    stack_device.last_run_stats.clear()
+    with env_set(env):
+        t0 = time.perf_counter()
+        out = stack.mfnr_mix_stacker(loader, _denoise_cfg(bg), device=dev)
+        wall = time.perf_counter() - t0
+    loader.release()
+    if out is None or out.shape != frames.shape[1:] or out.dtype != np.uint8:
+        fail(f"MFNR {bg} on {dev}: no image of the clip's shape")
+    return out, dict(stack_device.last_run_stats), wall
+
+
+def _within_one(name: str, got: np.ndarray, want: np.ndarray) -> str:
+    """Fail unless ``got`` is within +/-1 of ``want`` in under 2% of the
+    pixels (the JAX package's bar for its device MFNR against its host
+    path)."""
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    share = float((d > 0).mean())
+    if got.shape != want.shape or d.max() > 1 or share >= 0.02:
+        fail(f"{name}: max |diff| {d.max()}, {share:.4%} of pixels differ")
+    return f"max |diff| {d.max()}, {share:.4%} of pixels differ"
+
+
+MFNR_RUNS = [(bg, "full-upload", {"METDETPY_TPU_MFNR_HOST_REDUCE": "0"}
+              if bg == "mean" else {}) for bg in BG_ALGOS] + [
+    ("mean", "host-reduced-upload", {"METDETPY_TPU_MFNR_HOST_REDUCE": "1"})]
+
+
+def phase_denoise(card: str) -> None:
+    """Denoise and clip export on the card: device MFNR of a 64-frame
+    1920x1080 colour clip with every background (timed), the same held
+    against the host path at 960x540, the device median against the host
+    median, and ``python -m metdetpy_tpu_torch.clip`` on the card against
+    the CPU."""
+    from metdetpy_tpu_torch import clip
+    from metdetpy_tpu_torch.ops import stack
+    from metdetpy_tpu_torch.synth import write_video
+    n = 64
+    big, _, _ = synth_clip(2 * W, 2 * H, n / FPS, 0.8, 1.8, color=True,
+                           n_stars=300)
+    for bg, placement, env in MFNR_RUNS:
+        for run in ("first", "second"):
+            _, st, wall = _mfnr(big, bg, "cuda", {
+                "METDETPY_TPU_DEVICE_DENOISE": "force", **env})
+            if st.get("placement") != placement:
+                fail(f"MFNR {bg}: placement {st.get('placement')}, asked "
+                     f"for {placement}")
+            print(f"denoise MFNR {bg}, {placement}, {run} run: {n} frames "
+                  f"{2 * W}x{2 * H} colour in {wall:.3f} s = "
+                  f"{n / wall:.2f} frames/s on {card}; decode_acc_s "
+                  f"{st.get('decode_acc_s')}, upload_s "
+                  f"{st.get('upload_s')}, device_math_fetch_s "
+                  f"{st.get('device_math_fetch_s')}, h2d_bytes "
+                  f"{st.get('h2d_bytes')}, window_px_frac "
+                  f"{st.get('window_px_frac')}, host_stage_s "
+                  f"{st.get('host_stage_s')}", flush=True)
+    _time_mfnr_upload(card, big)
+    small, _, _ = synth_clip(W, H, n / FPS, 0.8, 1.8, color=True)
+    for bg, placement, env in MFNR_RUNS:
+        got, st, wall = _mfnr(small, bg, "cuda",
+                              {"METDETPY_TPU_DEVICE_DENOISE": "force",
+                               **env})
+        want, _, host_wall = _mfnr(small, bg, "cuda",
+                                   {"METDETPY_TPU_DEVICE_DENOISE": "0"})
+        if st.get("placement") != placement:
+            fail(f"MFNR {bg} at {W}x{H}: placement {st.get('placement')}")
+        print(f"denoise MFNR {bg}, {placement}, {W}x{H}: card {wall:.3f} s "
+              f"vs the host path {host_wall:.3f} s: "
+              f"{_within_one(f'MFNR {bg} {placement}', got, want)}",
+              flush=True)
+
+    frames = list(big)
+    with env_set({"METDETPY_TPU_DEVICE_MEDIAN": "force"}):
+        t0 = time.perf_counter()
+        med = stack.stack_median(frames, device="cuda")
+        dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = stack._host_median(frames)
+    host_s = time.perf_counter() - t0
+    if med.dtype != host.dtype or not np.array_equal(med, host):
+        fail("stack_median on the card differs from the host median")
+    print(f"stack_median of {n} frames {2 * W}x{2 * H} colour forced to "
+          f"{card}: {dev_s:.3f} s (pinning, upload, sort, fetch) vs the host "
+          f"median {host_s:.3f} s; equal", flush=True)
+
+    os.makedirs(FILES, exist_ok=True)
+    video = os.path.join(FILES, "clip_src.avi")
+    src, _, _ = synth_clip(W, H, 5.0, 1.0, 2.4, color=True)
+    write_video(src, video, fps=FPS)
+    reqs = os.path.join(FILES, "requests.json")
+    with open(reqs, "w", encoding="utf-8") as f:
+        json.dump([{"time": ["00:00:00.800", "00:00:02.600"],
+                    "target": [{"pt1": [int(W * .25), int(H * .2)],
+                                "pt2": [int(W * .5), int(H * .6)],
+                                "preds": "METEOR", "prob": "0.9"}]},
+                   {"time": ["00:00:03.000", "00:00:04.000"]}], f)
+    want_frames = [45, 25]
+    for mode, extra in (("image", []), ("simple", ["--denoise", "simple"]),
+                        ("mfnr-mix", ["--denoise", "mfnr-mix"]),
+                        ("video", ["--with-bbox"])):
+        outs, walls = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(FILES, f"clip_{mode}_{dev}")
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            clip.main([video, reqs, "--mode",
+                       "video" if mode == "video" else "image", "--suffix",
+                       "avi" if mode == "video" else "png", "--save-path",
+                       out, "--device", dev, *extra])
+            walls[dev] = time.perf_counter() - t0
+            outs[dev] = [_read_clip_output(os.path.join(out, x))
+                         for x in sorted(os.listdir(out))]
+        if len(outs["cuda"]) != 2 or len(outs["cpu"]) != 2:
+            fail(f"clip {mode}: {len(outs['cuda'])} / {len(outs['cpu'])} "
+                 "outputs for 2 requests")
+        for got, want, n_want in zip(outs["cuda"], outs["cpu"],
+                                     want_frames):
+            if mode == "mfnr-mix":
+                note = _within_one("clip mfnr-mix", got, want)
+            elif got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"clip {mode}: the card's output differs from the CPU's")
+            else:
+                note = "equal"
+            if mode == "video" and got.shape[0] != n_want:
+                fail(f"clip video: {got.shape[0]} frames, {n_want} asked")
+        print(f"clip {mode}: 2 requests on {card} in {walls['cuda']:.3f} s, "
+              f"on the CPU in {walls['cpu']:.3f} s; outputs "
+              f"{[o.shape for o in outs['cuda']]} against the CPU's: {note}",
+              flush=True)
     shutil.rmtree(FILES)
+
+
+def _time_mfnr_upload(card: str, frames: np.ndarray) -> None:
+    """The full-upload MFNR's transfer alone: the clip staged into pinned
+    memory and copied in 16-frame blocks as ``mfnr_mix_device`` does, and
+    the copy alone of the whole clip from pinned memory."""
+    from metdetpy_tpu_torch.ops.stack_device import (DEVICE_BLOCK,
+                                                     _BlockUploader)
+    dev = torch.device("cuda")
+    upload = _BlockUploader(dev)
+    staged = []
+    for _ in range(2):   # the second pass reuses the pinned buffers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(frames), DEVICE_BLOCK):
+            upload(list(frames[i:i + DEVICE_BLOCK]))
+        torch.cuda.synchronize()
+        staged.append(time.perf_counter() - t0)
+    pinned = torch.from_numpy(frames).pin_memory()
+    dst = torch.empty(pinned.shape, dtype=torch.uint8, device=dev)
+    dst.copy_(pinned, non_blocking=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.copy_(pinned, non_blocking=True)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    print(f"denoise MFNR upload of {frames.nbytes} B on {card}: staged and "
+          f"copied in {DEVICE_BLOCK}-frame blocks {staged[0]:.4f} s (first "
+          f"pass, pinning included) and {staged[1]:.4f} s; the copy alone "
+          f"from pinned memory {copy_s:.4f} s = "
+          f"{frames.nbytes / copy_s / 1e9:.2f} GB/s", flush=True)
+
+
+def _read_clip_output(path: str) -> np.ndarray:
+    """A PNG, or every frame of an AVI, decoded."""
+    import cv2
+    if path.endswith(".png"):
+        return cv2.imread(path)
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return np.stack(frames)
 
 
 def main() -> None:
@@ -1044,6 +1290,7 @@ def main() -> None:
     phase_loaders(card)
     phase_checkpoint(card)
     phase_photo(card)
+    phase_denoise(card)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

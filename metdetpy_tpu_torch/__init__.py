@@ -66,12 +66,13 @@ def _detectors():
 
 
 def _writers():
-    # the video writers come with the port's ClipToolkit slice
+    from .io.videowriter import (BaseVideoWriter, FFMpegVideoWriter,
+                                 OpenCVVideoWriter, PyAVVideoWriter)
     return {
-        "BaseVideoWriter": None,
-        "OpenCVVideoWriter": None,
-        "PyAVVideoWriter": None,
-        "FFMpegVideoWriter": None,
+        "BaseVideoWriter": BaseVideoWriter,
+        "OpenCVVideoWriter": OpenCVVideoWriter,
+        "PyAVVideoWriter": PyAVVideoWriter,
+        "FFMpegVideoWriter": FFMpegVideoWriter,
     }
 
 
@@ -85,10 +86,6 @@ def _resolver(kind: str, table_fn: Callable[[], dict]):
         table = table_fn()
         if class_name not in table:
             raise Exception(f"No class named {class_name} for {kind}.")
-        if table[class_name] is None:
-            raise NotImplementedError(
-                f"{kind} {class_name} is not ported to the PyTorch/CUDA "
-                "package yet")
         return table[class_name]
     return get
 

@@ -93,13 +93,39 @@ def _fma(a, b, c) -> np.ndarray:
     return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
 
 
-def _cubic_kernel(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic convolution kernel, a = -0.5, in float32, by Horner's
-    rule with each multiply-add fused."""
+def _cubic_kernel(d: np.ndarray, inv_scale) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5, of x = d * inv_scale in
+    float32, by Horner's rule with each multiply-add fused. XLA folds the
+    constant ``inv_scale`` into the first coefficient of each polynomial
+    (``1.5 * x`` becomes ``d * f32(1.5 * inv_scale)``); with inv_scale 1
+    (upscaling) the two forms are one."""
     f = np.float32
-    near = _fma(_fma(f(1.5), x, f(-2.5)) * x, x, f(1.0))
-    far = _fma(_fma(_fma(f(-0.5), x, f(2.5)), x, f(-4.0)), x, f(2.0))
+    x = (d * inv_scale).astype(f)
+    near = _fma(_fma(d, f(f(1.5) * inv_scale), f(-2.5)) * x, x, f(1.0))
+    far = _fma(_fma(_fma(d, f(f(-0.5) * inv_scale), f(2.5)), x, f(-4.0)),
+               x, f(2.0))
     return np.where(x >= 2.0, f(0.0), np.where(x >= 1.0, far, near))
+
+
+def _xla_column_sums(w: np.ndarray) -> np.ndarray:
+    """[1, n] float32 sums over the rows of ``w`` in the order of XLA's CPU
+    reduction: the rows, padded with zeros to a multiple of 32 (the pad
+    split evenly, the odd row after), summed in windows of 32 rows one row
+    at a time, then the windows' sums one after the other."""
+    f = np.float32
+    m = w.shape[0]
+    rows = -(-m // 32) * 32
+    lo = (rows - m) // 2
+    wp = np.zeros((rows, w.shape[1]), f)
+    wp[lo:lo + m] = w
+    wins = wp.reshape(rows // 32, 32, -1)
+    acc = np.zeros((rows // 32, w.shape[1]), f)
+    for j in range(32):
+        acc += wins[:, j]
+    total = np.zeros(w.shape[1], f)
+    for part in acc:
+        total += part
+    return total[None]
 
 
 def _cubic_weight_mat(m: int, n: int) -> np.ndarray:
@@ -107,19 +133,18 @@ def _cubic_weight_mat(m: int, n: int) -> np.ndarray:
     from m to n samples, as ``jax.image.resize(method="cubic")`` builds
     them: half-pixel centres, the kernel widened by m/n when scaling down,
     every output's weights normalized to sum 1. The float32 arithmetic is
-    that of the jitted JAX function on XLA's CPU backend: the sample
-    positions and the kernel's polynomial are fused multiply-adds and the
-    division by the kernel's width is a multiplication by its reciprocal
-    (without these the weights differ by up to 5e-6; with them a few
-    percent of the weights still differ, by at most 4e-7)."""
+    that of the jitted JAX function on XLA's CPU backend, which the weights
+    equal exactly: the sample positions and the kernel's polynomial are
+    fused multiply-adds, the division by the kernel's width a
+    multiplication by its reciprocal folded into the polynomial's first
+    coefficients, and the normalising sums XLA's windowed reduction."""
     f = np.float32
     inv_scale = f(1.0 / (n / m))
     kernel_scale = max(inv_scale, f(1.0))
     sample = _fma(np.arange(n, dtype=f) + f(0.5), inv_scale, f(-0.5))
-    x = np.abs(sample[None, :] - np.arange(m, dtype=f)[:, None]
-               ) * f(1.0 / np.float64(kernel_scale))
-    w = _cubic_kernel(x.astype(f))
-    total = np.sum(w, axis=0, keepdims=True, dtype=f)
+    d = np.abs(sample[None, :] - np.arange(m, dtype=f)[:, None]).astype(f)
+    w = _cubic_kernel(d, f(f(1.0) / kernel_scale))
+    total = _xla_column_sums(w)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f).eps),
                  w / np.where(total != 0, total, f(1.0)), f(0.0))
     inside = (sample >= -0.5) & (sample <= m - 0.5)

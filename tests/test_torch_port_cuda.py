@@ -400,3 +400,59 @@ def test_batch_pipeline_on_card_matches_forward_batch(cuda_device):
         np.testing.assert_array_equal(np.asarray(gb), np.asarray(wb))
         np.testing.assert_allclose(np.asarray(gc), np.asarray(wc),
                                    atol=1e-6)
+
+
+def _mfnr_clip(seed=SEED, n=18, h=96, w=128):
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 60, (n, h, w, 3), np.uint8)
+    for t in range(4, min(12, n)):
+        x, y = 10 + 8 * (t - 4), 20 + 5 * (t - 4)
+        frames[t, y:y + 3, x:x + 12] = 250
+    return frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bg,host_reduce", [
+    ("mean", "0"), ("mean", "1"), ("median", None),
+    ("sigma-clipping", None), ("med-of-med", None)])
+def test_device_mfnr_on_card_matches_cpu(cuda_device, monkeypatch, bg,
+                                         host_reduce):
+    """Device MFNR on the card against the same code on the CPU: within
+    +/-1 in at most 0.1% of pixels (the scalar sums are float64 on both,
+    in the two devices' orders), the same placement and bytes uploaded."""
+    from metdetpy_tpu_torch.io.videoloader import ThreadVideoLoader
+    from metdetpy_tpu_torch.io.videowrapper import NumpyVideoWrapper
+    from metdetpy_tpu_torch.ops import stack_device
+    from metdetpy_tpu_torch.structs import ClipCfg
+    dn = ClipCfg.from_json_file(
+        relative2abs_path("./global/clip_cfg.json")).image_denoise
+    dn.mfnr_param.bg_algorithm = bg
+    if host_reduce is not None:
+        monkeypatch.setenv("METDETPY_TPU_MFNR_HOST_REDUCE", host_reduce)
+    frames = _mfnr_clip()
+    out, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        loader = ThreadVideoLoader(NumpyVideoWrapper, frames.copy(),
+                                   exp_option="real-time", merge_func="max",
+                                   grayscale=False)
+        out[dev] = stack_device.mfnr_mix_device(loader, dn, device=dev)
+        stats[dev] = dict(stack_device.last_run_stats)
+    d = np.abs(out["cuda"].astype(np.int16) - out["cpu"].astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.001
+    for key in ("placement", "h2d_bytes"):
+        assert stats["cuda"][key] == stats["cpu"][key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 8])
+def test_device_median_on_card_equals_host(cuda_device, monkeypatch, n):
+    from metdetpy_tpu_torch.ops import stack
+    rng = np.random.default_rng(SEED)
+    frames = list(rng.integers(0, 256, (n, 40, 56, 3), np.uint8))
+    got = stack.median_frames(torch.from_numpy(np.stack(frames)).cuda())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  stack._host_median(frames))
+    monkeypatch.setattr(stack, "DEVICE_MEDIAN_MIN_ELEMS", 1)
+    monkeypatch.setenv("METDETPY_TPU_DEVICE_MEDIAN", "force")
+    np.testing.assert_array_equal(stack.stack_median(frames, device="cuda"),
+                                  stack._host_median(frames))

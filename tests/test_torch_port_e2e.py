@@ -96,19 +96,17 @@ def test_device_failure_recovery(synth_frames, monkeypatch):
 
 
 def test_unported_options_raise(synth_frames):
-    """What is still to be ported raises: the time-sharded mode, the video
-    writers (they come with ClipToolkit) and a batch sharded over devices.
-    Checkpoint/resume is ported (tests/test_torch_port_checkpoint.py); a
-    resume without a checkpoint file is refused."""
-    from metdetpy_tpu_torch import get_writer
+    """What is still to be ported raises: the time-sharded mode and a batch
+    sharded over devices. Checkpoint/resume is ported
+    (tests/test_torch_port_checkpoint.py); a resume without a checkpoint
+    file is refused. The video writers are ported
+    (tests/test_torch_port_videowriter.py)."""
     from metdetpy_tpu_torch.models.pipeline import BatchPipeline
     with pytest.raises(ValueError, match="checkpoint_path"):
         detect_video(synth_frames, None, _cfg(TMainDetectCfg), resume=True,
                      device="cpu")
     with pytest.raises(SystemExit):
         cli_main(["x.avi", "--temporal-shards", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_writer("FFMpegVideoWriter")
     with pytest.raises(NotImplementedError, match="multi-device"):
         BatchPipeline(None, sharding=object())
 

@@ -226,6 +226,39 @@ def test_timelapse_matches_jax(tmp_path, monkeypatch):
         assert "num_frame" in rec
 
 
+def _long_streak_image(seed, hw=(360, 640), length=300.0):
+    """A colour star field with a streak about ``length`` px long, which
+    crosses several tiles of the two-level pyramid: the tiles' detections
+    come out as a chain of boxes with near-equal scores."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    img = np.full((h, w), 12.0, np.float32)
+    for _ in range(60):
+        _draw_gaussian_dot(img, rng.uniform(0, w), rng.uniform(0, h),
+                           rng.uniform(25, 200), rng.uniform(0.8, 1.5))
+    x1, y1 = rng.uniform(0.1 * w, 0.3 * w), rng.uniform(0.1 * h, 0.3 * h)
+    ang = rng.uniform(0.25, 0.6)
+    x2, y2 = x1 + length * np.cos(ang), y1 + length * np.sin(ang)
+    for k in range(600):
+        a = k / 599
+        _draw_gaussian_dot(img, x1 + (x2 - x1) * a, y1 + (y2 - y1) * a,
+                           210.0 * (1 - 0.3 * a), 1.8)
+    img = img + rng.normal(0, 3, img.shape)
+    return np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, -1)
+
+
+@pytest.mark.parametrize("seed", [0, 2, 4])
+def test_long_streak_records_match_jax(seed, tmp_path, monkeypatch):
+    """A ~300 px streak on a 640x360 photo at the multiscale default
+    (``--scale`` 2): the port's records equal MetDetPhoto's on the CPU,
+    box for box within 2 px and 0.03 (the chained boxes included)."""
+    img = tmp_path / f"long_{seed}.png"
+    cv2.imwrite(str(img), _long_streak_image(seed))
+    got, want = _both(img, tmp_path, monkeypatch)
+    assert len(want["results"][0]["boxes"]) >= 2, want
+    _assert_records_close(got, want)
+
+
 def test_folder_failure_propagates(photo_dir, tmp_path, monkeypatch):
     """An exception in the folder loop ends the run and writes no MDRF
     (MetDetPhoto.py logs it and writes what it had)."""

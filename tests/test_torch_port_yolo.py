@@ -9,7 +9,9 @@ and its counterpart. Tolerances, as stated at each test:
   rtol 2e-4 and atol 2e-4 x max|head|;
 - bfloat16 heads: 99% of the values within 5% of the head's standard
   deviation and none beyond 50%;
-- the cubic resize: atol 1e-6; ``decode_predictions``: rtol 1e-6;
+- the cubic resize's weight matrices: exact; the resize itself: atol
+  3e-7 (the two matrix products sum in their own orders);
+  ``decode_predictions``: rtol 1e-6;
 - ``_unit_f32``, ``_topk_compact``, the IoU matrix, ``nms_xyxy`` /
   ``_nms_batch``, ``_sel_nms_device``, ``_compact_kept_device``,
   ``_plan_tiles``, ``_unpack_compact``: exact;
@@ -272,14 +274,30 @@ def test_unit_f32_matches_jax_exactly():
     ((1, 96, 96, 3), (96, 96)),        # identity
 ])
 def test_cubic_resize_matches_jax(shape, hw):
-    """atol 1e-6 against ``jax.image.resize(method="cubic")`` (Keys kernel,
-    a = -0.5, antialiased when scaling down)."""
+    """atol 3e-7 (2.5 ulp at 1.0) against ``jax.image.resize(method=
+    "cubic")`` (Keys kernel, a = -0.5, antialiased when scaling down): the
+    weights are XLA's exactly, the products' sums run in torch's order."""
     x = np.random.default_rng(15).uniform(0, 1, shape).astype(np.float32)
     want = np.asarray(jax.jit(jyolo._resize_to, static_argnums=1)(
         jnp.asarray(x), hw))
     got = tyolo._resize_to(t(x), hw).numpy()
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-7)
+
+
+@pytest.mark.parametrize("m,n", [(136, 96), (133, 96), (544, 320),
+                                 (533, 320), (50, 96), (40, 96), (70, 96),
+                                 (200, 96), (33, 16)])
+def test_cubic_weight_matrix_equals_jax(m, n):
+    """The [m, n] weights equal those the jitted ``jax.image.resize`` applies
+    (read back by resizing one-hot rows: each output is one weight times
+    1.0 plus zeros, exact), including XLA's folded kernel constants and its
+    windowed normalising sums."""
+    eye = np.zeros((m, m, 1, 3), np.float32)
+    eye[np.arange(m), np.arange(m)] = 1.0
+    want = np.asarray(jax.jit(lambda a: jax.image.resize(
+        a, (m, n, 1, 3), method="cubic"))(jnp.asarray(eye)))[:, :, 0, 0]
+    np.testing.assert_array_equal(tyolo._cubic_weight_mat(m, n), want)
 
 
 # -- top-k, NMS, compaction ------------------------------------------------
