@@ -87,6 +87,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    stack and simple denoise equal, mfnr-mix within +/-1 in under 2%,
    video with bboxes of the requested frame counts.
 
+13. Multistream M3: ``parallel.multistream.detect_multi_stream`` with
+   m3det_normal's detector as shipped (n = 25) over 8 gray 960x540 streams
+   of 256 frames in 64-frame blocks (BASELINE.json configuration 5 at its
+   analysis resolution; meteors in three streams at different times), the
+   8 streams' shards laid on the one card (``shared_mesh``): one
+   window_diff and one median_binarize_close launch a block for all
+   streams, 64 of each Hough kernel; each stream's packed rows equal its
+   own M3 step's bit for bit (the sharded programs' fold of the diff area)
+   and its records its own M3Detector run's; aggregate frames/s and host
+   ms a block.
+14. Multistream dldet: dldet.json's detector over 4 colour 960x544
+   streams, 2 blocks of 64 merged frames, against each stream's own
+   MLDetector run (boxes within 2 px, scores within 0.03).
+15. Temporal shards: ``temporal_m3_detect`` over 512 gray 960x540 frames
+   on 4 shards of the card, bit for bit against ``_m3_block_step`` over
+   the whole block, and in 4 super-blocks of 128 against the whole clip;
+   ``detect_frames_temporal``'s records; ``python -m metdetpy_tpu_torch
+   <200-frame 960x540 MJPG AVI> --temporal-shards 1 --temporal-super-block
+   4`` against ``detect_video_temporal``'s whole-clip mode;
+   ``detect_frames_temporal_dldet`` on 2 shards against MLDetector's
+   records.
+16. Data-parallel: ``BatchPipeline`` over a 2-shard mesh on the card (11
+   images, padded to 12) against the unsharded pipeline, and
+   ``python -m metdetpy_tpu_torch.photo --data-parallel 2`` on one card
+   ending with "need 2 devices, have 1".
+
+Phase 2 also times window_diff over 8 streams in one launch (frames
+[8, 64, 540, 960], the history a view of the block before), exact against
+its plain version; the ragged cases include window_diff's stream axis.
+
 Phases 3 and 6 run the presets as ``detect_video`` sets them up: the
 loader uploads each block from pinned memory in its uploader thread; they
 require bytes uploaded by it, and phase 6 also times a 12-block dldet run
@@ -319,6 +349,43 @@ def raster_vote_times(dev: torch.device) -> dict:
             "raster_valid_points": int(args[2].sum())}
 
 
+def stream_window_diff_times(dev: torch.device) -> dict:
+    """window_diff over 8 streams in one launch, the multistream block's
+    shape: frames [8, 64, 540, 960] and, as the detector carries it, the
+    history a view of each stream's last 24 frames of the block before
+    (streams 64 frames apart). Exact against the plain version, then warm
+    and cold ms beside the bound."""
+    from metdetpy_tpu_torch.ops import kernels as K
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    prev = torch.randint(0, 256, (N_STREAMS, T_BLOCK, H, W), generator=g,
+                         device=dev, dtype=torch.uint8)
+    frames = torch.randint(0, 256, (N_STREAMS, T_BLOCK, H, W), generator=g,
+                           device=dev, dtype=torch.uint8)
+    args = (prev[:, T_BLOCK - (N_WIN - 1):], frames, N_WIN, 10)
+    err = check_exact("window_diff, 8 streams", K.window_diff,
+                      K.window_diff_plain, args)
+    hw = H * W
+    # per stream: read n-1+T frames, write T (the new history is a view)
+    b_ms, b_by = bound(N_STREAMS * (N_WIN - 1 + 2 * T_BLOCK) * hw,
+                       7 * N_STREAMS * T_BLOCK * hw)
+    out = {"stream_shape": f"frames [{N_STREAMS}, {T_BLOCK}, {H}, {W}], "
+                           f"history a view [{N_STREAMS}, {N_WIN - 1}, {H}, "
+                           f"{W}]",
+           "stream_max_abs_err": err,
+           "stream_ms": cuda_ms(lambda: K.window_diff(*args), 20),
+           "stream_cold_ms": cold_ms(K.window_diff, args),
+           "stream_plain_ms": cuda_ms(lambda: K.window_diff_plain(*args), 3,
+                                      1),
+           "stream_bound_ms": b_ms, "stream_bound_by": b_by}
+    print(f"kernel window_diff, {out['stream_shape']}: exact; "
+          f"{out['stream_ms']:.4f} ms warm, {out['stream_cold_ms']:.4f} ms "
+          f"cold (plain {out['stream_plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by})", flush=True)
+    del prev, frames, args
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(dev: torch.device) -> dict:
     """Each kernel against its plain version, exact, with times."""
     from metdetpy_tpu_torch.ops import kernels as K
@@ -343,6 +410,8 @@ def phase_kernels(dev: torch.device) -> dict:
                   f"{rows[name]['raster_valid_points']} points: exact; "
                   f"{rows[name]['raster_ms']:.4f} ms warm, "
                   f"{rows[name]['raster_cold_ms']:.4f} ms cold", flush=True)
+        if name == "window_diff":
+            rows[name].update(stream_window_diff_times(dev))
         if name == "walk_pick":
             rows[name]["floor_ms"] = cuda_ms(
                 lambda: K.walk_pick_floor(*args), 20)
@@ -363,8 +432,18 @@ def phase_ragged(dev: torch.device) -> None:
     for case in C.PICK_CASES:
         check_exact(f"walk_pick case {case[0]}", K.walk_pick,
                     K.walk_pick_plain, C.pick_case(case, dev, SEED))
-    print(f"ragged cases: {len(C.VOTE_CASES)} of hough_vote and "
-          f"{len(C.PICK_CASES)} of walk_pick exact", flush=True)
+    for case in C.WINDOW_DIFF_STREAM_CASES:
+        K.reset_launch_counts()
+        check_exact(f"window_diff stream case {case[0]}", K.window_diff,
+                    K.window_diff_plain,
+                    C.window_diff_stream_case(case, dev, SEED))
+        if K.LAUNCHES["window_diff"] != 1:
+            fail(f"window_diff stream case {case[0]}: "
+                 f"{K.LAUNCHES['window_diff']} launches, expected 1")
+    print(f"ragged cases: {len(C.VOTE_CASES)} of hough_vote, "
+          f"{len(C.PICK_CASES)} of walk_pick and "
+          f"{len(C.WINDOW_DIFF_STREAM_CASES)} of window_diff's stream axis "
+          f"(one launch each) exact", flush=True)
 
 
 def preset_cfg(preset: str, resize="shipped", recheck=True, detector=None):
@@ -1206,7 +1285,6 @@ def phase_denoise(card: str) -> None:
               f"on the CPU in {walls['cpu']:.3f} s; outputs "
               f"{[o.shape for o in outs['cuda']]} against the CPU's: {note}",
               flush=True)
-    shutil.rmtree(FILES)
 
 
 def _time_mfnr_upload(card: str, frames: np.ndarray) -> None:
@@ -1256,6 +1334,455 @@ def _read_clip_output(path: str) -> np.ndarray:
     return np.stack(frames)
 
 
+# ---------------------------------------------------------------------------
+# The parallel package: multistream M3 and dldet, temporal shards,
+# data-parallel photo. The tests' and the smoke's meshes lay their shards on
+# the one card (parallel.mesh.shared_mesh): shards that share a device are a
+# batch axis of each call.
+
+N_STREAMS, STREAM_FRAMES = 8, 256
+
+
+def _rt(w: int, h: int, fps: float):
+    from metdetpy_tpu_torch.structs import RuntimeParams
+    return RuntimeParams(fps=fps, exp_frame=1, eq_fps=fps,
+                         eq_int_fps=max(int(fps), 1), exp_time=1 / fps,
+                         runtime_size=[w, h], raw_size=[w, h],
+                         positive_category_list=["METEOR"])
+
+
+def _gray_streams() -> tuple[np.ndarray, list]:
+    """[8, 256, 540, 960] u8: a meteor in streams 1, 4 and 6 at different
+    times (one synthetic clip rolled in time), the other five meteor-free
+    (a 64-frame sky tiled over 256 frames, rolled and flipped)."""
+    from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
+    sky = generate_meteor_video(
+        width=W, height=H, fps=FPS, duration_sec=STREAM_FRAMES / FPS,
+        meteors=[SynthMeteor(start_sec=1.0, end_sec=2.6,
+                             pt1=(W * 2 // 3, H * 2 // 9),
+                             pt2=(W * 2 // 5, H * 3 // 5))], n_stars=150,
+        noise_sigma=3.0, seed=SEED + 5)
+    quiet = np.tile(generate_meteor_video(
+        width=W, height=H, fps=FPS, duration_sec=64 / FPS, meteors=[],
+        n_stars=150, noise_sigma=3.0, seed=SEED + 6),
+        (STREAM_FRAMES // 64, 1, 1))
+    out = np.empty((N_STREAMS, STREAM_FRAMES, H, W), np.uint8)
+    meteor_streams = {1: 0, 4: 80, 6: 150}
+    for s in range(N_STREAMS):
+        if s in meteor_streams:
+            out[s] = np.roll(sky, meteor_streams[s], axis=0)
+        else:
+            q = np.roll(quiet, 11 * s, axis=0)
+            out[s] = q[:, ::-1] if s % 2 else q[:, :, ::-1]
+    return out, sorted(meteor_streams)
+
+
+def _m3_stream_reference(frames: np.ndarray, cfg, logger):
+    """One stream through the port's M3Detector on the card, block by
+    block as detect_multi_stream feeds its streams: its packed buffers
+    (its step with the sharded programs' fold of the diff area,
+    ``_m3_block_step(sharded_fold=True)``) and its records."""
+    from metdetpy_tpu_torch.detectors.m3det import M3Detector, _m3_block_step
+    from metdetpy_tpu_torch.track.collector import MeteorCollector
+    from metdetpy_tpu_torch.utils import get_num_class
+    rt = _rt(W, H, FPS)
+    det = M3Detector(cfg.detector.window_sec, FPS, np.ones((H, W), np.uint8),
+                     get_num_class(), cfg.detector.cfg, logger,
+                     max_points=MAX_POINTS, max_peaks=MAX_PEAKS,
+                     device="cuda")
+    col = MeteorCollector(cfg.collector, rt, video_loader=None,
+                          logger=logger, device="cuda")
+    packed_all = []
+    for pos in range(0, frames.shape[0] - T_BLOCK + 1, T_BLOCK):
+        block = torch.from_numpy(frames[pos:pos + T_BLOCK]).cuda()
+        (packed, dst, det._gray_hist, det._sub_hist, det._dy_hist,
+         det._ema) = _m3_block_step(
+            det._gray_hist, det._sub_hist, det._dy_hist, det._ema, block,
+            det.timer, **det._step_static_kwargs(), sharded_fold=True)
+        det.timer += T_BLOCK
+        buf = packed.cpu().numpy()
+        packed_all.append(buf)
+        for j, (lines, cates) in enumerate(
+                det._collect_from_buf(buf, (packed, dst))):
+            if len(lines) or (pos + j) % rt.eq_int_fps == 0:
+                col.update(pos + j, lines, cates)
+    col.clear()
+    return np.concatenate(packed_all), col.met_exporter.meteor_list
+
+
+def _device_busy(prof) -> tuple[float, list]:
+    """The device kernels' summed self time in a profile (ms) and the five
+    largest [name, ms]."""
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and t:
+            rows.append((t / 1e3, ev.key[:60]))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), [[k, round(t, 3)] for t, k in rows[:5]]
+
+
+def phase_multistream(card: str) -> dict:
+    """m3det_normal's detector (n = 25) over 8 gray 960x540 streams of 256
+    frames in 64-frame blocks, BASELINE.json configuration 5 at its
+    analysis resolution; returns the launch counts of the run."""
+    from metdetpy_tpu_torch.log import BaseMetLog
+    from metdetpy_tpu_torch.ops import kernels as K
+    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
+    from metdetpy_tpu_torch.parallel.multistream import (
+        MultiStreamM3Detector, detect_multi_stream)
+    from metdetpy_tpu_torch.utils import get_num_class
+    streams, meteor_streams = _gray_streams()
+    cfg = preset_cfg("m3det_normal", recheck=False)
+    logger = BaseMetLog()
+    n_blocks = STREAM_FRAMES // T_BLOCK
+    mesh = shared_mesh(N_STREAMS, "cuda")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = detect_multi_stream(list(streams), cfg, _rt(W, H, FPS),
+                                  logger, mesh=mesh, block_frames=T_BLOCK,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    want = {"window_diff": n_blocks, "median_binarize_close": n_blocks,
+            "hough_vote": n_blocks * N_STREAMS * T_BLOCK // FRAME_CHUNK,
+            "walk_pick": n_blocks * N_STREAMS * T_BLOCK // FRAME_CHUNK}
+    if launches != want:
+        fail(f"multistream: launches {launches}, expected {want} (one "
+             "window_diff and one median_binarize_close a block for all "
+             "streams)")
+    # host time of the dispatch and wall time of a block, in a second run
+    det = MultiStreamM3Detector(
+        N_STREAMS, cfg.detector.window_sec, FPS, np.ones((H, W), np.uint8),
+        get_num_class(), cfg.detector.cfg, logger, mesh=mesh,
+        max_points=MAX_POINTS, max_peaks=MAX_PEAKS, device="cuda")
+    packed, host_s, block_s = [], [], []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for pos in range(0, STREAM_FRAMES, T_BLOCK):
+        blocks = np.ascontiguousarray(streams[:, pos:pos + T_BLOCK])
+        last = pos + T_BLOCK == STREAM_FRAMES
+        with (torch.profiler.profile(activities=acts) if last
+              else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            handle = det.process_blocks_async(blocks)
+            t2 = time.perf_counter()
+            det.collect(handle)
+            t3 = time.perf_counter()
+        if not last:
+            host_s.append(t2 - t1)
+            block_s.append(t3 - t1)
+        packed.append(np.concatenate([p.cpu().numpy() for p in handle]))
+    packed = np.concatenate(packed, axis=1)
+    busy_ms, top = _device_busy(prof)
+    prof_ms = (t3 - t1) * 1e3
+    upload = torch.from_numpy(blocks)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    upload.to("cuda")
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t1) * 1e3
+    found = []
+    for s in range(N_STREAMS):
+        ref_packed, ref_records = _m3_stream_reference(streams[s], cfg,
+                                                       logger)
+        if not np.array_equal(packed[s], ref_packed):
+            n_bad = int((packed[s] != ref_packed).sum())
+            fail(f"multistream: stream {s}'s packed rows differ from its "
+                 f"own M3 step's in {n_bad} values")
+        got = [r.to_dict() for r in records[s]]
+        if got != [r.to_dict() for r in ref_records]:
+            fail(f"multistream: stream {s}'s records differ from its own "
+                 f"M3Detector run: {got} vs "
+                 f"{[r.to_dict() for r in ref_records]}")
+        if any(t.category == "METEOR" for r in records[s] for t in r.target):
+            found.append(s)
+    if not set(meteor_streams) <= set(found):
+        fail(f"multistream: METEORs in streams {found}, the meteors are in "
+             f"{meteor_streams}")
+    n = N_STREAMS * STREAM_FRAMES
+    print(f"multistream M3 ({N_STREAMS} streams {W}x{H}, {STREAM_FRAMES} "
+          f"frames each, {n_blocks} blocks of {T_BLOCK}): {n / wall:.2f} "
+          f"frames/s aggregate ({wall:.3f} s) on {card}; dispatch "
+          f"{1e3 * np.mean(host_s[1:]):.2f} host ms a block, "
+          f"{1e3 * np.mean(block_s[1:]):.2f} ms a block with the collect "
+          f"(first block {1e3 * block_s[0]:.2f} ms; the {upload.nbytes} B "
+          f"block's pageable upload alone {upload_ms:.2f} ms); profiled "
+          f"block: {prof_ms:.2f} ms wall, device busy {busy_ms:.2f} ms, idle "
+          f"share {1 - busy_ms / prof_ms:.4f}, top device ops {top}; "
+          f"launches {launches}; "
+          f"METEOR in streams {found}; every stream's packed rows and "
+          f"records equal its own M3Detector run", flush=True)
+    return launches
+
+
+def _dl_close(name: str, got: list, want: list) -> int:
+    """Frame results within the card's model tolerance (boxes within 2 px,
+    scores within 0.03; an unpaired box only at the objectness band).
+    Returns the number of boxes paired."""
+    if len(got) != len(want):
+        fail(f"{name}: {len(got)} frames against {len(want)}")
+    n = 0
+    for (gp, gc), (wp, wc) in zip(got, want):
+        left = list(range(len(wp)))
+        for p, c in zip(gp, gc):
+            near = [i for i in left if np.abs(wp[i] - p).max() <= 2]
+            if not near:
+                if c.max() > 0.53:
+                    fail(f"{name}: box {p} ({c.max():.3f}) has no match")
+                continue
+            left.remove(near[0])
+            if np.abs(c - wc[near[0]]).max() > 0.03:
+                fail(f"{name}: scores of {p} differ by more than 0.03")
+            n += 1
+        if any(wc[i].max() > 0.53 for i in left):
+            fail(f"{name}: boxes {[wp[i] for i in left]} have no match")
+    return n
+
+
+def _color_clip(frames: int) -> np.ndarray:
+    """Merged colour frames of 960x544 (dldet's runtime size) with one
+    meteor."""
+    clip, _, _ = synth_clip(960, 544, frames / FPS, 0.8, 2.0, color=True,
+                            seed=SEED + 7)
+    return clip
+
+
+def phase_multistream_dldet(card: str, clip: np.ndarray) -> None:
+    """dldet.json's detector over 4 colour 960x544 streams, 2 blocks of 64
+    merged frames, against each stream's own MLDetector run on the card."""
+    from metdetpy_tpu_torch.detectors.mldet import MLDetector
+    from metdetpy_tpu_torch.log import BaseMetLog
+    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
+    from metdetpy_tpu_torch.parallel.multistream_dldet import \
+        MultiStreamMLDetector
+    from metdetpy_tpu_torch.utils import get_num_class
+    cfg = preset_cfg("dldet")
+    fps = FPS / 12                      # 0.5 s exposures of 25 fps video
+    streams = np.stack([np.roll(clip, 32 * s, axis=0) for s in range(4)])
+    mask = np.ones((544, 960, 3), np.uint8)
+    logger = BaseMetLog()
+    det = MultiStreamMLDetector(4, cfg.detector.window_sec, fps, mask,
+                                get_num_class(), cfg.detector.cfg, logger,
+                                mesh=shared_mesh(4, "cuda"), device="cuda")
+    t0 = time.perf_counter()
+    got = [det.process_blocks(np.ascontiguousarray(
+        streams[:, b:b + T_BLOCK])) for b in (0, T_BLOCK)]
+    wall = time.perf_counter() - t0
+    n = 0
+    for s in range(4):
+        seq = MLDetector(cfg.detector.window_sec, fps, mask,
+                         get_num_class(), cfg.detector.cfg, logger,
+                         device="cuda")
+        want = (seq.process_block(streams[s, :T_BLOCK])
+                + seq.process_block(streams[s, T_BLOCK:]))
+        n += _dl_close(f"multistream dldet, stream {s}",
+                       got[0][s] + got[1][s], want)
+    if n < 4:
+        fail(f"multistream dldet: only {n} boxes found in 4 streams")
+    print(f"multistream dldet (4 streams 960x544 colour, 2 blocks of "
+          f"{T_BLOCK} merged frames): {4 * 2 * T_BLOCK / wall:.2f} merged "
+          f"frames/s aggregate ({wall:.3f} s, the first blocks included) on "
+          f"{card}; {n} boxes agree with each stream's MLDetector (2 px, "
+          f"0.03)", flush=True)
+
+
+def _ml_records(frames: np.ndarray, cfg, fps: float, logger) -> list:
+    """MLDetector on the card, 64-frame blocks, the block loop's collector
+    cadence: the sequential records of ``frames``."""
+    from metdetpy_tpu_torch.detectors.mldet import MLDetector
+    from metdetpy_tpu_torch.track.collector import MeteorCollector
+    from metdetpy_tpu_torch.utils import get_num_class
+    h, w = frames.shape[1:3]
+    rt = _rt(w, h, fps)
+    det = MLDetector(cfg.detector.window_sec, fps, np.ones((h, w, 3),
+                                                            np.uint8),
+                     get_num_class(), cfg.detector.cfg, logger,
+                     device="cuda")
+    col = MeteorCollector(cfg.collector, rt, video_loader=None,
+                          logger=logger, device="cuda")
+    for pos in range(0, frames.shape[0], T_BLOCK):
+        for j, (lines, cates) in enumerate(
+                det.process_block(frames[pos:pos + T_BLOCK])):
+            if len(lines) or (pos + j) % rt.eq_int_fps == 0:
+                col.update(pos + j, lines=lines, cates=cates)
+    col.clear()
+    return col.met_exporter.meteor_list
+
+
+def _records_close(name: str, got: list, want: list) -> None:
+    a_t = [t for r in got for t in r.target]
+    b_t = [t for r in want for t in r.target]
+    if len(a_t) != len(b_t) or not a_t:
+        fail(f"{name}: {len(a_t)} target(s) against {len(b_t)}")
+    for a, b in zip(a_t, b_t):
+        if not ((a.category, a.start_frame, a.last_activate_frame)
+                == (b.category, b.start_frame, b.last_activate_frame)
+                and max(abs(p - q) for p, q in zip(
+                    [*a.pt1, *a.pt2], [*b.pt1, *b.pt2])) <= 2
+                and abs(a.score - b.score) <= 0.03):
+            fail(f"{name}: {a} against {b}")
+
+
+def phase_temporal(card: str, clip: np.ndarray) -> dict:
+    """Temporal shards on the card: the M3 step over 512 gray 960x540
+    frames on 4 shards (whole clip and 128-frame super-blocks) against the
+    single-device step, the CLI's super-block mode against its whole-clip
+    mode, and dldet on 2 shards against MLDetector. Returns the launch
+    counts of the whole-clip run."""
+    from metdetpy_tpu_torch.api import detect_video_temporal
+    from metdetpy_tpu_torch.detectors.m3det import EmaState, _m3_block_step
+    from metdetpy_tpu_torch.log import BaseMetLog
+    from metdetpy_tpu_torch.ops import kernels as K
+    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
+    from metdetpy_tpu_torch.parallel.temporal import (
+        _m3_params, detect_frames_temporal, temporal_m3_detect)
+    from metdetpy_tpu_torch.parallel.temporal_dldet import \
+        detect_frames_temporal_dldet
+    from metdetpy_tpu_torch.synth import write_video
+    streams, _ = _gray_streams()
+    frames = np.concatenate([streams[1], streams[0]])     # 512 frames
+    del streams
+    cfg = preset_cfg("m3det_normal", recheck=False)
+    mask = np.ones((H, W), np.uint8)
+    params = _m3_params(cfg, FPS, mask)
+    init = params.pop("init_threshold")
+    mesh = shared_mesh(4, "cuda")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    packed, dst = temporal_m3_detect(frames, **params, init_threshold=init,
+                                     max_points=MAX_POINTS,
+                                     max_peaks=MAX_PEAKS, mesh=mesh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    n = params["n"]
+    r1, c1, r2, c2 = params["roi"]
+    z = lambda *s: torch.zeros(s, dtype=torch.uint8, device="cuda")  # noqa
+    ref, ref_dst, *_ = _m3_block_step(
+        z(n - 1, H, W), z(n - 1, r2 - r1, c2 - c1), z(n - 1, H, W),
+        EmaState.init(params["momentum"], init, torch.device("cuda")),
+        torch.from_numpy(frames).cuda(), 0, **params,
+        max_points=MAX_POINTS, max_peaks=MAX_PEAKS, sharded_fold=True)
+    if not (torch.equal(packed, ref) and torch.equal(dst, ref_dst)):
+        fail("temporal: the 4-shard step differs from the single-device "
+             f"step over the whole block ({int((packed != ref).sum())} "
+             "packed values)")
+    carry, parts = None, []
+    for a in range(0, frames.shape[0], 128):
+        p, _, carry = temporal_m3_detect(
+            frames[a:a + 128], **params, init_threshold=init,
+            max_points=MAX_POINTS, max_peaks=MAX_PEAKS, mesh=mesh,
+            carry=carry, return_carry=True)
+        parts.append(p)
+    if not torch.equal(torch.cat(parts), packed):
+        fail("temporal: 128-frame super-blocks differ from the whole clip")
+    del ref, ref_dst, dst, parts
+    t0 = time.perf_counter()
+    records, used = detect_frames_temporal(frames, cfg, FPS, mesh=mesh,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not any(t.category == "METEOR" for r in records for t in r.target):
+        fail(f"temporal: no METEOR in {used} frames")
+    print(f"temporal M3, 4 shards on {card}: {used} frames {W}x{H}, the "
+          f"step {step_s:.3f} s, detect_frames_temporal "
+          f"{used / wall:.2f} frames/s ({wall:.3f} s); the step equals the "
+          f"single-device step bit for bit, 4 super-blocks of 128 equal the "
+          f"whole clip; launches {launches}", flush=True)
+
+    # the CLI: super-blocks of 4 s against the whole-clip mode, 1 shard
+    os.makedirs(FILES, exist_ok=True)
+    video = os.path.join(FILES, "temporal.avi")
+    write_video(frames[:200], video, fps=FPS)
+    out = os.path.join(FILES, "temporal.json")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "metdetpy_tpu_torch", video, "--mode",
+         "backend", "--exp-time", "real-time", "--temporal-shards", "1",
+         "--temporal-super-block", "4", "--save-path", out],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"temporal CLI exited {run.returncode}: {run.stderr[-2000:]}")
+    with open(out, encoding="utf-8") as f:
+        cli = json.load(f)["results"]
+    from metdetpy_tpu_torch.structs import MainDetectCfg
+    from metdetpy_tpu_torch.utils import relative2abs_path
+    cfg_v = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json"))
+    cfg_v.loader.exp_time = "real-time"
+    whole = detect_video_temporal(video, None, cfg_v, n_shards=1,
+                                  device="cuda")
+    if cli != _dicts(whole) or not cli:
+        fail(f"temporal CLI: {cli} against the whole-clip mode's "
+             f"{_dicts(whole)}")
+    print(f"temporal CLI (--temporal-shards 1 --temporal-super-block 4, a "
+          f"200-frame {W}x{H} MJPG AVI) in {cli_s:.1f} s: {len(cli)} "
+          f"record(s), equal to the whole-clip mode's", flush=True)
+
+    # dldet over 2 shards against MLDetector
+    dl_cfg = preset_cfg("dldet")
+    logger = BaseMetLog()
+    t0 = time.perf_counter()
+    got, used = detect_frames_temporal_dldet(
+        clip, dl_cfg, FPS / 12, mesh=shared_mesh(2, "cuda"), logger=logger,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _records_close("temporal dldet", got,
+                   _ml_records(clip, dl_cfg, FPS / 12, logger))
+    print(f"temporal dldet, 2 shards on {card}: {used} merged frames "
+          f"960x544 in {wall:.3f} s = {used / wall:.2f} frames/s; "
+          f"{sum(len(r.target) for r in got)} target(s) agree with "
+          f"MLDetector's (frames equal, points within 2 px, scores within "
+          f"0.03)", flush=True)
+    return launches
+
+
+def phase_data_parallel(card: str) -> None:
+    """BatchPipeline over a 2-shard mesh on the card against the unsharded
+    pipeline (11 images, padded to 12), and the photo entry point's
+    refusal of --data-parallel 2 on one card."""
+    from metdetpy_tpu_torch.models.pipeline import BatchPipeline
+    from metdetpy_tpu_torch.models.yolo import YOLOModel
+    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
+    from metdetpy_tpu_torch.utils import relative2abs_path
+    rng = np.random.default_rng(SEED + 8)
+    imgs = np.stack([_photo_sky(rng, W, H, True) for _ in range(11)])
+    model = YOLOModel(relative2abs_path("./weights/yolov5s_v5.flax.npz"),
+                      nms=True, warmup=True, multiscale_pred=2,
+                      multiscale_partition=2, device="cuda")
+    tags = list(range(11))
+    sharded = BatchPipeline(model, inflight=0,
+                            sharding=shared_mesh(2, "cuda")).submit(tags,
+                                                                    imgs)
+    plain = BatchPipeline(model, inflight=0).submit(tags, imgs)
+    if [t for t, _ in sharded] != tags:
+        fail(f"data-parallel: tags {[t for t, _ in sharded]}")
+    n = _dl_close("data-parallel", [r for _, r in sharded],
+                  [r for _, r in plain])
+    exact = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for (_, a), (_, b) in zip(sharded, plain))
+    if n < 5:
+        fail(f"data-parallel: {n} boxes in 11 images with streaks")
+    run = subprocess.run(
+        [sys.executable, "-m", "metdetpy_tpu_torch.photo", FILES,
+         "--data-parallel", "2"], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    want = f"need 2 devices, have {torch.cuda.device_count()}"
+    if run.returncode == 0 or want not in run.stderr:
+        fail(f"photo --data-parallel 2: exit {run.returncode}, expected the "
+             f"error '{want}': {run.stderr[-1000:]}")
+    print(f"data-parallel: 11 images {W}x{H} over 2 shards on {card}: "
+          f"{n} boxes agree with the unsharded pipeline "
+          f"({'equal' if exact else 'within 2 px and 0.03'}); photo "
+          f"--data-parallel 2 exits {run.returncode} with '{want}'",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
@@ -1291,8 +1818,17 @@ def main() -> None:
     phase_checkpoint(card)
     phase_photo(card)
     phase_denoise(card)
+    ms_launches = phase_multistream(card)
+    clip = _color_clip(2 * T_BLOCK)
+    phase_multistream_dldet(card, clip)
+    temporal_launches = phase_temporal(card, clip)
+    del clip
+    phase_data_parallel(card)
+    shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]
+        row["multistream_launches"] = ms_launches[name]
+        row["temporal_launches"] = temporal_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,16 @@ The arguments of ``MetDetPy.py`` (reference MetDetPy.py:253-398) plus
 ``--device``. The presets run as shipped: they switch the recheck on, and
 the recheck model (YOLOv5s, ``weights/yolov5s_v5.flax.npz``) runs on the
 same device as the detector; ``--recheck off`` switches it off. A weight
-file that does not exist ends the run with an error.
+file that does not exist ends the run with an error. ``--temporal-shards
+N`` runs ``api.detect_video_temporal`` instead: the whole clip (or, with
+``--temporal-super-block SEC``, super-blocks of SEC seconds) with its time
+axis sharded over N cards (N shards on ``--device cpu``).
 """
 
 import argparse
 import json
 
-from .api import detect_video
+from .api import detect_video, detect_video_temporal
 from .io.fileio import save_path_handler
 from .structs import BinaryCfg, MainDetectCfg
 from .utils import (SWITCH2BOOL, VERSION, relative2abs_path,
@@ -63,11 +66,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Detect at approximately recording speed.")
     parser.add_argument("--save-path", type=str, default=None,
                         help="Save detection results as a json file.")
-    parser.add_argument("--temporal-shards", type=int, default=None,
-                        help="Time-sharded batch mode (not ported yet).")
-    parser.add_argument("--temporal-super-block", type=float, default=None,
-                        metavar="SEC",
-                        help="With --temporal-shards (not ported yet).")
+    parser.add_argument(
+        "--temporal-shards", type=int, default=None,
+        help="Batch mode: decode the whole video into memory and detect "
+             "with the time axis sharded over N devices (default: "
+             "streaming block pipeline).")
+    parser.add_argument(
+        "--temporal-super-block", type=float, default=None, metavar="SEC",
+        help="With --temporal-shards: process the video in SEC-second "
+             "super-blocks with the state carried on the device instead of "
+             "the whole clip in memory (equal results; bounded host memory "
+             "for multi-hour videos).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device to run on: cuda (default) or cpu.")
     return parser
@@ -96,16 +105,21 @@ def main(argv=None) -> None:
             cfg.detector.cfg.binary.init_value = args.bi_thre
     if args.recheck:
         cfg.collector.recheck_cfg.switch = SWITCH2BOOL[args.recheck]
-    if args.temporal_shards:
-        parser.error("--temporal-shards comes with the multi-device slice "
-                     "of the PyTorch/CUDA port")
     live_mode = SWITCH2BOOL[args.live_mode] if args.live_mode else False
 
-    result = detect_video(args.target, args.mask, cfg, args.debug,
-                          args.visual, work_mode=args.mode,
-                          time_range=(args.start_time, args.end_time),
-                          live_mode=live_mode, provider_key=args.provider,
-                          device=args.device)
+    if args.temporal_shards:
+        result = detect_video_temporal(
+            args.target, args.mask, cfg, n_shards=args.temporal_shards,
+            work_mode=args.mode,
+            time_range=(args.start_time, args.end_time),
+            super_block_sec=args.temporal_super_block, device=args.device)
+    else:
+        result = detect_video(args.target, args.mask, cfg, args.debug,
+                              args.visual, work_mode=args.mode,
+                              time_range=(args.start_time, args.end_time),
+                              live_mode=live_mode,
+                              provider_key=args.provider,
+                              device=args.device)
     if args.save_path:
         save_path = save_path_handler(args.save_path, args.target, ext="json")
         with open(save_path, mode="w", encoding="utf-8") as f:

@@ -1,4 +1,5 @@
-"""The main detection API of the port: ``detect_video``.
+"""The main detection API of the port: ``detect_video``, and
+``detect_video_temporal`` (time-sharded batch detection).
 
 Counterpart of ``metdetpy_tpu/api.py`` (orchestration parity with
 reference MetDetPy.py:24-250: loader -> detector -> collector loop, work
@@ -241,6 +242,136 @@ def detect_video(video_name: str, mask_name: Optional[str],
 def _zero_results(detector, n_real):
     return [(np.zeros((0, 4), int),
              np.zeros((0, detector.num_cls)))] * n_real
+
+
+def detect_video_temporal(video_name: str, mask_name: Optional[str],
+                          cfg: MainDetectCfg, n_shards: Optional[int] = None,
+                          work_mode: str = "backend",
+                          time_range: tuple[Optional[str],
+                                            Optional[str]] = (None, None),
+                          super_block_sec: Optional[float] = None,
+                          device: str = "cuda") -> MDRF:
+    """Batch detection with the time axis sharded over a device mesh of
+    ``n_shards`` cards (default: all; ``"cpu"``: that many shards on the
+    CPU); raises where there are fewer cards.
+
+    Default mode decodes and preprocesses the whole (windowed) video into
+    one in-memory [T, H, W] array, then runs the complete M3 step
+    time-sharded (``parallel.temporal.detect_frames_temporal``). With
+    ``super_block_sec`` set, the clip is processed in super-blocks of that
+    many seconds with the state carried on the device between sharded
+    steps (``detect_frames_temporal_streaming``): host memory is bounded
+    by one super-block, and the results equal the whole-clip mode's.
+
+    Accepts a grayscale line-detector config (the M3 step,
+    ``parallel.temporal``) or a colour MLDetector (dldet) config (sharded
+    window-max and batched YOLO, ``parallel.temporal_dldet``). The
+    collector has no stack source, so a recheck switched on in the config
+    is switched off by it, as in the JAX package.
+    """
+    from .parallel.mesh import build_mesh
+    from .parallel.temporal import (detect_frames_temporal,
+                                    detect_frames_temporal_streaming)
+    from .parallel.temporal_dldet import (
+        detect_frames_temporal_dldet,
+        detect_frames_temporal_dldet_streaming)
+
+    dev = resolve_device(device)
+    set_default_logger(False, work_mode)
+    logger = get_default_logger()
+    logger.start()
+    try:
+        LoaderCls = get_loader(cfg.loader.name)
+        WrapperCls = get_wrapper(cfg.loader.wrapper)
+        dldet = cfg.detector.name == "MLDetector"
+        if cfg.loader.grayscale == dldet:
+            raise ValueError(
+                "temporal batch detection requires a grayscale classic-"
+                "detector config, or a color MLDetector (dldet) config")
+        start_time, end_time = time_range
+        video_loader = LoaderCls(
+            WrapperCls, video_name, mask_name=mask_name,
+            resize_option=cfg.loader.resize, hwaccel=cfg.loader.hwaccel,
+            start_time=start_time, end_time=end_time,
+            grayscale=not dldet,
+            exp_option=cfg.loader.exp_time,
+            exp_upper_bound=cfg.loader.upper_bound,
+            merge_func=cfg.loader.merge_func,
+            continue_on_err=cfg.loader.continue_on_err)
+        video_info = video_loader.summary()
+        logger.info(repr(video_loader))
+        rt_param = RuntimeParams(
+            fps=video_loader.fps, exp_frame=video_loader.exp_frame,
+            eq_fps=video_loader.eq_fps, eq_int_fps=video_loader.eq_int_fps,
+            exp_time=video_loader.exp_time,
+            runtime_size=video_loader.runtime_size,
+            raw_size=video_loader.raw_size,
+            positive_category_list=ClipCfg.from_json_file(
+                get_clip_config_path()).export.positive_category_list)
+
+        mesh = build_mesh(n_shards, axis_name="time", device=dev)
+        n = mesh.size
+        mask = video_loader.mask if mask_name else None
+        video_loader.start()
+
+        def iter_blocks():
+            # BlockVideoLoader recycles a fixed pool of block buffers; a
+            # retained reference would be overwritten once the producer
+            # laps the pool, so copy
+            if hasattr(video_loader, "pop_block"):
+                while True:
+                    blk = video_loader.pop_block()
+                    if blk is None:
+                        return
+                    yield np.array(blk, copy=True)
+            else:
+                while not video_loader.stopped:
+                    f = video_loader.pop()
+                    if f is None:
+                        return
+                    yield np.array(f[None], copy=True)
+
+        if super_block_sec is not None:
+            super_frames = max(int(super_block_sec * rt_param.eq_fps), n)
+            stream_fn = (detect_frames_temporal_dldet_streaming if dldet
+                         else detect_frames_temporal_streaming)
+            try:
+                records, used = stream_fn(
+                    iter_blocks(), cfg, fps=rt_param.eq_fps, mask=mask,
+                    mesh=mesh, super_block_frames=super_frames,
+                    logger=logger, rt_params=rt_param)
+            finally:
+                video_loader.release()
+            if dldet:  # temporal_dldet's super-block sizing
+                n_win = max(int(cfg.detector.window_sec
+                                * rt_param.eq_fps), 1)
+                sb_frames = max(super_frames // n, n_win - 1, 1) * n
+            else:
+                sb_frames = max(super_frames // n * n, n)
+            logger.info(f"Streaming temporal detection: {used} merged "
+                        f"frames over {n} shards in "
+                        f"{-(-used // sb_frames)} super-blocks.")
+        else:
+            try:
+                chunks = list(iter_blocks())
+            finally:
+                video_loader.release()
+            if not chunks:
+                raise ValueError("no frames decoded")
+            frames = np.concatenate(chunks, axis=0)
+            del chunks
+            batch_fn = (detect_frames_temporal_dldet if dldet
+                        else detect_frames_temporal)
+            records, used = batch_fn(
+                frames, cfg, fps=rt_param.eq_fps, mask=mask, mesh=mesh,
+                logger=logger, rt_params=rt_param)
+            logger.info(f"Temporal batch detection: {used} merged frames "
+                        f"over {n} shards.")
+    finally:
+        logger.stop()
+    return MDRF(version=VERSION, basic_info=video_info, config=cfg,
+                type="prediction", anno_size=video_info.resolution,
+                results=records)
 
 
 def _run_block_loop(video_loader, detector: BaseDetector, collector,

@@ -33,6 +33,15 @@
 //   (tests/test_torch_port_kernel_algebra.py); len == 1 takes the sum.
 // - Edges: where hw % 16 != 0 or a pointer is not 16-byte aligned (and for
 //   the last, partial word) a thread loads and stores its bytes one by one.
+// - Streams: one launch takes S independent blocks (S camera feeds, or S
+//   consecutive time shards), frames [S, T, H, W] with history
+//   [S, n-1, H, W]; blockIdx.y is the stream. Each stream's history is
+//   contiguous, the streams hist_ss bytes apart: where the caller passes
+//   the previous block's last n-1 frames as a view, that is T*H*W, not
+//   (n-1)*H*W. Stream s starts at frame timer0 + s * timer_step. The stream
+//   offsets are a template flag: a launch of one stream compiles to the
+//   single-stream kernel (its pointers stay kernel parameters; with the
+//   offsets the kernel holds them in registers: 117 against 80).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +57,7 @@ constexpr int kMaxThreads = 128;
 constexpr int kMaxSmem = 232448;    // shared memory one block may use
 constexpr int kMaxDevices = 64;
 
-// devices whose kernel attributes are set (at the first launch on each)
+// devices whose kernels' attributes are set (at the first launch on each)
 std::atomic<bool> g_attrs_set[kMaxDevices] = {};
 
 __device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
@@ -80,13 +89,24 @@ __device__ __forceinline__ uint32_t sub_bytes(uint32_t a, uint32_t b) {
 
 }  // namespace
 
+template <bool kStreams>
 __global__ void __launch_bounds__(kMaxThreads)
     window_diff_kernel(const uint8_t* __restrict__ hist,
                        const uint8_t* __restrict__ frames,
                        uint8_t* __restrict__ diff,
                        uint8_t* __restrict__ new_hist, long long hw, int n,
-                       int t_block, int timer0, bool vec) {
+                       int t_block, int timer0_base, int timer_step,
+                       long long hist_ss, bool vec) {
   extern __shared__ uint4 smem[];
+  long long timer0 = timer0_base;
+  if (kStreams) {
+    const long long stream = blockIdx.y;
+    hist += stream * hist_ss;
+    frames += stream * t_block * hw;
+    diff += stream * t_block * hw;
+    if (new_hist != nullptr) new_hist += stream * (n - 1) * hw;
+    timer0 = min(timer0 + stream * timer_step, (long long)n);
+  }
   const int bd = blockDim.x;
   const int ring = n + kStages + 1;
   uint4* raw = smem + threadIdx.x;               // frame slot s: raw[s * bd]
@@ -190,7 +210,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (++j == n) j = 0;
 
       const uint32_t len =
-          (uint32_t)min((long long)timer0 + 1 + t, (long long)n);
+          (uint32_t)min(timer0 + 1 + t, (long long)n);
       if (len != cur_len) {
         cur_len = len;
         // ceil(2^32 / len); len == 1 takes the sum itself
@@ -217,13 +237,24 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+using Kernel = void (*)(const uint8_t*, const uint8_t*, uint8_t*, uint8_t*,
+                       long long, int, int, int, int, long long, bool);
+// the single-stream kernel and the one with stream offsets
+const Kernel kKernels[2] = {window_diff_kernel<false>,
+                            window_diff_kernel<true>};
+
 // new_hist: nullptr where the caller takes the new history as a view of
-// frames (n - 1 <= t_block)
+// frames (n - 1 <= t_block). frames, diff and new_hist are contiguous
+// [n_streams, ...]; hist_ss is the distance in bytes between two streams'
+// histories. timer0 and timer_step are at most n (the window length only
+// needs min(timer, n)).
 extern "C" int mdt_window_diff(const void* hist, const void* frames,
                                void* diff, void* new_hist, long long hw,
                                int n, int t_block, int timer0,
-                               void* stream) {
-  if (hw <= 0 || t_block <= 0) return 0;
+                               int n_streams, long long hist_ss,
+                               int timer_step, void* stream) {
+  if (hw <= 0 || t_block <= 0 || n_streams <= 0) return 0;
+  if (n_streams > 65535) return (int)cudaErrorInvalidValue;
   // per thread: a ring of n + kStages + 1 frames and n suffix maxima
   const long long per_thread = (2LL * n + kStages + 1) * 16;
   long long threads = kMaxSmem / per_thread;
@@ -235,27 +266,29 @@ extern "C" int mdt_window_diff(const void* hist, const void* frames,
   if (err != cudaSuccess) return (int)err;
   const bool cached = dev < kMaxDevices && g_attrs_set[dev].load();
   if (!cached) {
-    err = cudaFuncSetAttribute(window_diff_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-    if (err == cudaSuccess)
+    for (Kernel kernel : kKernels) {
       err = cudaFuncSetAttribute(
-          window_diff_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          100);
-    if (err != cudaSuccess) return (int)err;
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+      if (err != cudaSuccess) return (int)err;
+    }
     if (dev < kMaxDevices) g_attrs_set[dev].store(true);
   }
   const auto aligned = [](const void* p) {
     return ((uintptr_t)p & 15) == 0;
   };
   const bool vec = hw % 16 == 0 && aligned(frames) && aligned(diff) &&
-                   (n == 1 || (aligned(hist) && aligned(new_hist)));
+                   (n == 1 || (aligned(hist) && aligned(new_hist) &&
+                               hist_ss % 16 == 0));
   const long long words = (hw + 15) / 16;
   const unsigned blocks = (unsigned)((words + threads - 1) / threads);
-  window_diff_kernel<<<blocks, (unsigned)threads,
-                       (size_t)(threads * per_thread),
-                       (cudaStream_t)stream>>>(
+  const dim3 grid(blocks, (unsigned)n_streams);
+  const Kernel kernel = kKernels[n_streams > 1];
+  kernel<<<grid, (unsigned)threads, (size_t)(threads * per_thread),
+           (cudaStream_t)stream>>>(
       (const uint8_t*)hist, (const uint8_t*)frames, (uint8_t*)diff,
-      (uint8_t*)new_hist, hw, n, t_block, timer0, vec);
+      (uint8_t*)new_hist, hw, n, t_block, timer0, timer_step, hist_ss, vec);
   return (int)cudaGetLastError();
 }

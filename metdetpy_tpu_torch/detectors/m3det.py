@@ -79,8 +79,9 @@ def select_subarea(mask: np.ndarray, area: float):
 @dataclasses.dataclass
 class EmaState:
     """Noise-EMA state (reference EMA with quadratic warmup,
-    MetLib/utils.py:324-368). The value and thresholds are 0-dim f32
-    device tensors; the data-independent schedule state is on the host."""
+    MetLib/utils.py:324-368). The value and thresholds are f32 device
+    tensors, 0-dim for one stream or [S] for S streams that share a frame
+    timer; the data-independent schedule state is on the host."""
     cur_value: torch.Tensor     # f32
     t: int                      # update count
     warmup_on: bool
@@ -89,10 +90,10 @@ class EmaState:
     bi_thr_float: torch.Tensor  # f32 unrounded threshold (for visu)
 
     @staticmethod
-    def init(momentum: float, init_threshold: float,
-             device: torch.device) -> "EmaState":
+    def init(momentum: float, init_threshold: float, device: torch.device,
+             shape: tuple = ()) -> "EmaState":
         def scalar(v):
-            return torch.full((), v, dtype=torch.float32, device=device)
+            return torch.full(shape, v, dtype=torch.float32, device=device)
         return EmaState(scalar(0.0), 0, True, _F32(momentum),
                         scalar(init_threshold), scalar(init_threshold))
 
@@ -101,7 +102,8 @@ def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
                         *, n: int, std_interval: int, momentum: float,
                         warmup_speed: float, adaptive: bool, coef_a: float,
                         coef_b: float):
-    """Per-frame noise EMA + adaptive threshold over a block.
+    """Per-frame noise EMA + adaptive threshold over a block: stds [T], or
+    [S, T] for S streams with ``state`` of shape [S] (one host schedule).
 
     Update schedule of SNR_SW.update (MetLib/Detector.py:81-91): every
     frame while 1 < timer <= n, then every std_interval frames. Threshold
@@ -109,10 +111,10 @@ def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
 
     f32 arithmetic follows the JAX package's scan as XLA's CPU backend
     compiles it: ``1 - (1-k)^2`` and ``m*v + (1-m)*s`` and ``a*v^2 + b``
-    are each one fused multiply-add. Returns (thr [T] u8, thr_f [T] f32,
-    ema_vals [T] f32, new state).
+    are each one fused multiply-add. Returns (thr u8, thr_f f32, ema_vals
+    f32, each of the shape of ``stds``, and the new state).
     """
-    t_block = stds.shape[0]
+    t_block = stds.shape[-1]
     m_f = _F32(momentum)
     one_minus_m = _F32(1 - momentum)
     speed = _F32(warmup_speed)
@@ -128,83 +130,126 @@ def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
             cur_m = warm_m if (warm_on and k < 1) else m_f
             warm_on = bool(warm_on and k < 1)
             val = fma_f32(val, float(cur_m),
-                          stds[i] * float(_F32(1) - cur_m))
+                          stds[..., i] * float(_F32(1) - cur_m))
             t_cnt += 1
         vals.append(val)
-    ema_vals = torch.stack(vals)
+    ema_vals = torch.stack(vals, dim=-1)
     if adaptive:
         steps = torch.arange(t_block, device=stds.device)
         thr_f_new = fma_f32(ema_vals * ema_vals, float(_F32(coef_a)),
                             float(_F32(coef_b)))
         use = ema_vals != 0
         # carry forward the last step whose EMA value was nonzero
-        last = torch.cummax(torch.where(use, steps, -1), dim=0).values
+        last = torch.cummax(torch.where(use, steps, -1), dim=-1).values
         src = last.clamp(min=0)
-        thr_f = torch.where(last >= 0, thr_f_new[src], state.bi_thr_float)
-        thr = torch.where(last >= 0, torch.round(thr_f_new)[src],
-                          state.bi_threshold)
+        thr_f = torch.where(last >= 0, thr_f_new.gather(-1, src),
+                            state.bi_thr_float[..., None])
+        thr = torch.where(last >= 0, torch.round(thr_f_new).gather(-1, src),
+                          state.bi_threshold[..., None])
     else:
-        thr_f = state.bi_thr_float.expand(t_block)
-        thr = state.bi_threshold.expand(t_block)
-    new_state = EmaState(ema_vals[-1], t_cnt, warm_on, cur_m, thr[-1],
-                         thr_f[-1])
+        thr_f = state.bi_thr_float[..., None].expand(stds.shape)
+        thr = state.bi_threshold[..., None].expand(stds.shape)
+    new_state = EmaState(ema_vals[..., -1], t_cnt, warm_on, cur_m,
+                         thr[..., -1], thr_f[..., -1])
     # f32 -> u8 saturates, as XLA's conversion does
     return thr.clamp(0, 255).to(torch.uint8), thr_f, ema_vals, new_state
 
 
-def _dst_sum_scales(mask_area: int) -> tuple[float, float]:
+def _dst_sum_scales(mask_area: int,
+                    sharded_fold: bool = False) -> tuple[float, float]:
     """f32 factors of the diff area ``sum / 255.0 / mask_area * 100.0`` (%
     of the mask) and of ``dst_sum / MAX_ALLOW_GAP``, as XLA folds them:
     the f32 reciprocals of 255 and of the area multiplied with 100 in
     float64 and rounded once; that divided by f32(MAX_ALLOW_GAP) in float64
     and rounded once. The gap's ``1 - sum * scale`` is then contracted to a
-    fused multiply-add (both matched against jnp for several areas)."""
+    fused multiply-add (both matched against jnp for several areas).
+
+    ``sharded_fold``: the area factor as the JAX package's sharded
+    programs fold it (the step under ``shard_map`` and ``jax.vmap``:
+    ``parallel/multistream.py``, ``parallel/temporal.py``), rounded to f32
+    after each of the two products, matched against their packed buffers;
+    their gap factor is the single-stream one. The two folds differ in the
+    last two bits of some diff areas, nowhere else."""
     f64 = np.float64
     inv_area = _F32(1 / mask_area) if mask_area else _F32(np.inf)
     area = _F32(f64(_F32(1 / 255)) * f64(inv_area) * 100.0)
     gap = _F32(f64(area) / f64(_F32(MAX_ALLOW_GAP)))
+    if sharded_fold:
+        area = _F32(_F32(_F32(1 / 255) * inv_area) * _F32(100))
     return float(area), float(gap)
 
 
 def _m3_block_step(gray_hist, sub_hist, dy_hist, ema_state, frames, timer0,
                    *, n, roi, dy_mask, mask_area, std_interval, momentum,
                    warmup_speed, adaptive, coef_a, coef_b, hough_threshold,
-                   min_len, max_gap, max_points, max_peaks):
-    """The M3 step over one [T, H, W] u8 device block. Returns the packed
-    host buffer, the dst block (for visu) and the new carries."""
+                   min_len, max_gap, max_points, max_peaks,
+                   sharded_fold=False):
+    """The M3 step over one [T, H, W] u8 device block, or over S streams'
+    blocks at once ([S, T, H, W], carries with a leading [S], one timer):
+    each stream's results equal its own single-stream step's (the diff
+    area to the fold ``sharded_fold`` selects, see ``_dst_sum_scales``).
+    Returns the packed host buffer ([(S,) T, K*5 + N_EXTRAS]), the dst
+    block (for visu) and the new carries."""
     r1, c1, r2, c2 = roi
-    t_block = frames.shape[0]
     diff, new_gray = kernels.window_diff(gray_hist, frames, n, timer0)
     stds, new_sub = windows.window_noise_std(
-        sub_hist, frames[:, r1:r2, c1:c2], n, timer0)
+        sub_hist, frames[..., r1:r2, c1:c2], n, timer0)
     thr, thr_f, ema_vals, new_ema = _ema_threshold_scan(
         stds, timer0, ema_state, n=n, std_interval=std_interval,
         momentum=momentum, warmup_speed=warmup_speed, adaptive=adaptive,
         coef_a=coef_a, coef_b=coef_b)
+    closed = median_binarize_close_blocks(diff, thr)
+    packed, dst, new_dy = _m3_lines(
+        closed, dy_hist, timer0, 0, ema_vals, thr_f, thr, n=n,
+        dy_mask=dy_mask, mask_area=mask_area,
+        hough_threshold=hough_threshold, min_len=min_len, max_gap=max_gap,
+        max_points=max_points, max_peaks=max_peaks,
+        sharded_fold=sharded_fold)
+    return packed, dst, new_gray, new_sub, new_dy, new_ema
 
-    closed = kernels.median_binarize_close(diff, thr)
+
+def median_binarize_close_blocks(diff: torch.Tensor,
+                                 thr: torch.Tensor) -> torch.Tensor:
+    """``kernels.median_binarize_close`` over [..., T, H, W] with thr
+    [..., T]: the frames of every stream in one launch."""
+    h, w = diff.shape[-2:]
+    return kernels.median_binarize_close(
+        diff.reshape(-1, h, w), thr.reshape(-1)).reshape(diff.shape)
+
+
+def _m3_lines(closed, dy_hist, timer0, timer_step, ema_vals, thr_f, thr, *,
+              n, dy_mask, mask_area, hough_threshold, min_len, max_gap,
+              max_points, max_peaks, sharded_fold=False):
+    """The step after binarization, over [(S,) T, H, W] u8: dynamic mask,
+    diff area, batched Hough of all frames together, the packed buffer.
+    Stream s starts at frame timer0 + s * timer_step. Returns (packed,
+    dst, new dy history)."""
     new_dy = dy_hist
     dst = closed
     if dy_mask:
         dy_sum, new_dy = windows.rolling_sum_u32(dy_hist, closed, n)
-        lens = windows.window_lengths(timer0, t_block, n, frames.device)
+        lens = windows.window_lengths(
+            timer0, closed.shape[-3], n, closed.device,
+            closed.shape[0] if closed.dim() == 4 else 0, timer_step)
         # pixels active in >= length-1 window slots are hot (stars/towers):
         # erode the pass-mask and zero them (reference
         # MetLib/Detector.py:234-242)
-        passmask = (dy_sum <= ((lens - 1) * 255)[:, None, None]).to(
+        passmask = (dy_sum <= ((lens - 1) * 255)[..., None, None]).to(
             torch.uint8)
         dst = closed * filters.erode3x3(passmask)
-    area_scale, gap_scale = _dst_sum_scales(mask_area)
-    dst_px = dst.sum(dim=(1, 2), dtype=torch.int64).to(torch.float32)
+    area_scale, gap_scale = _dst_sum_scales(mask_area, sharded_fold)
+    dst_px = dst.sum(dim=(-2, -1), dtype=torch.int64).to(torch.float32)
     dst_sum = dst_px * area_scale
     # max(0, 1 - dst_sum / MAX_ALLOW_GAP) * max_gap
     gap = torch.clamp(fma_f32(-dst_px, gap_scale, 1.0), min=0.0) * max_gap
-    hough = hough_lines_batch(dst, gap, threshold=hough_threshold,
-                              min_len=min_len, max_points=max_points,
-                              max_peaks=max_peaks)
-    packed = _pack(hough.lines, hough.valid, dst_sum, hough.npix,
-                   hough.overflow, ema_vals, thr_f, thr)
-    return packed, dst, new_gray, new_sub, new_dy, new_ema
+    h, w = dst.shape[-2:]
+    hough = hough_lines_batch(dst.reshape(-1, h, w), gap.reshape(-1),
+                              threshold=hough_threshold, min_len=min_len,
+                              max_points=max_points, max_peaks=max_peaks)
+    packed = _pack(hough.lines, hough.valid, dst_sum.reshape(-1),
+                   hough.npix, hough.overflow, ema_vals.reshape(-1),
+                   thr_f.reshape(-1), thr.reshape(-1))
+    return packed.reshape(*dst.shape[:-2], -1), dst, new_dy
 
 
 def _pack(lines, valid, dst_sum, npix, overflow, ema_vals, thr_f, thr):

@@ -31,11 +31,12 @@ from .base import BaseDetector, FrameResult
 
 
 def _window_max_color(hist: torch.Tensor, frames: torch.Tensor, n: int):
-    """Rolling max over [T, H, W, C] with [n-1, H, W, C] history."""
-    seq = torch.cat([hist, frames], dim=0)
-    out = seq.unfold(0, n, 1).amax(dim=-1) if n > 1 else seq
+    """Rolling max over [T, H, W, C] with [n-1, H, W, C] history, or over
+    S streams at once ([S, T, H, W, C] with [S, n-1, H, W, C])."""
+    seq = torch.cat([hist, frames], dim=-4)
+    out = seq.unfold(-4, n, 1).amax(dim=-1) if n > 1 else seq
     # a copy, so the carry does not keep the whole sequence alive
-    return out, seq[frames.shape[0]:].clone()
+    return out, seq[..., frames.shape[-4]:, :, :, :].clone()
 
 
 _ROI_WIN = 256          # ROI window side (boxes larger fall back)
@@ -177,6 +178,98 @@ def _gather_gray_rois(stacks: torch.Tensor, ts, ys, xs, p: int):
     detection."""
     return _gray_i32(_gather_windows(stacks, ts.long(), ys.long(),
                                      xs.long(), p)).to(torch.uint8)
+
+
+def fetch_gray_rois(stacks_dev: torch.Tensor, dets: list) -> list:
+    """Batched orientation-ROI readback. ``dets`` holds
+    (t, y1, y2, x1, x2) with raw (possibly negative / overshooting)
+    box coords; each entry resolves with python plain-slice semantics
+    -- exactly what ``stacks_dev[t, y1:y2, x1:x2]`` did -- then all
+    in-window ROIs arrive as one [N, p, p] device gather + a single
+    device->host copy (gray-converted on device, bit-equal to cv2's
+    BGR2GRAY). Oversize ROIs (> _ROI_WIN) fall back to an individual
+    copy. Returns gray u8 arrays (size 0 when the slice is empty),
+    one per det."""
+    h, w = int(stacks_dev.shape[1]), int(stacks_dev.shape[2])
+    p = int(min(_ROI_WIN, h, w))
+    out: list = [None] * len(dets)
+    pend: list = []   # (det_idx, oy, ox, bh, bw)
+    origins: list = []  # (t, y0, x0)
+    for i, (t, y1, y2, x1, x2) in enumerate(dets):
+        y1c, y2c, _ = slice(int(y1), int(y2)).indices(h)
+        x1c, x2c, _ = slice(int(x1), int(x2)).indices(w)
+        bh, bw = max(0, y2c - y1c), max(0, x2c - x1c)
+        if bh == 0 or bw == 0:
+            out[i] = np.zeros((bh, bw), np.uint8)
+            continue
+        if bh > p or bw > p:
+            with torch.inference_mode():
+                out[i] = _gray_i32(stacks_dev[t, y1c:y2c, x1c:x2c]).to(
+                    torch.uint8).cpu().numpy()
+            continue
+        y0 = min(y1c, h - p)
+        x0 = min(x1c, w - p)
+        pend.append((i, y1c - y0, x1c - x0, bh, bw))
+        origins.append((t, y0, x0))
+    if pend:
+        with torch.inference_mode():
+            ts, ys, xs = torch.tensor(origins, dtype=torch.int64,
+                                      device=stacks_dev.device).unbind(1)
+            wins = _gather_gray_rois(stacks_dev, ts, ys, xs,
+                                     p).cpu().numpy()
+        for (i, oy, ox, bh, bw), win in zip(pend, wins):
+            out[i] = win[oy:oy + bh, ox:ox + bw]
+    return out
+
+
+def orient_results(stacks_dev, batch_out: list, num_cls: int, orient=None,
+                   rowidx=None) -> list[FrameResult]:
+    """Orient each box of ``batch_out`` (frame t of the [T, H, W, 3]
+    stacks) along the Sobel gradient of its ROI (reference
+    MetLib/Detector.py:549-554): from the device-computed sums ``orient``
+    joined through ``rowidx`` where given, else from the ROIs copied back
+    in one batch (``fetch_gray_rois``). Returns per-frame (boxes, cls)."""
+    results: list[FrameResult] = []
+    dets: list = []       # (t, y1, y2, x1, x2)
+    drcts: list = []      # device-computed angle or None (host leg)
+    use_dev = orient is not None and rowidx is not None
+    for t, (pos, cls) in enumerate(batch_out):
+        for i, coords in enumerate(pos):
+            if use_dev:
+                r = int(rowidx[t][i])
+                if r < len(orient) and orient[r][3] > 0:
+                    sc, cc, wtot, _ = orient[r]
+                    drcts.append(
+                        float(np.arctan2(sc, cc) % (2 * np.pi))
+                        if wtot > 0 else float("nan"))
+                    continue
+            box = Box.from_list(list(coords))
+            dets.append((t, box.y1, box.y2, box.x1, box.x2))
+            drcts.append(None)
+    rois = fetch_gray_rois(stacks_dev, dets) if dets else []
+    roi_iter = iter(rois)
+    # orient each box diagonal along the dominant gradient direction
+    # (reference MetLib/Detector.py:549-554); device-computed angles
+    # (the compact path) resolved above, host-fetched ROIs here
+    di = 0
+    for t, (pos, cls) in enumerate(batch_out):
+        for i in range(len(pos)):
+            drct = drcts[di]
+            di += 1
+            if drct is None:
+                roi = next(roi_iter)
+                if roi.size == 0:
+                    continue
+                drct = calc_roi_gradient(roi)
+            if not np.isnan(drct) and int(drct // (np.pi / 2)) % 2 == 1:
+                pos[i, [1, 3]] = pos[i, [3, 1]]
+    for t, (pos, cls) in enumerate(batch_out):
+        if len(pos) == 0:
+            results.append((np.zeros((0, 4), int),
+                            np.zeros((0, num_cls))))
+            continue
+        results.append((pos, expand_cls_pred(cls)))
+    return results
 
 
 class MLDetector(BaseDetector):
@@ -327,90 +420,13 @@ class MLDetector(BaseDetector):
         batch_out = self.model.forward_batch_device(stacks_dev)
         return self._orient_results(stacks_dev, batch_out)
 
-    def _fetch_gray_rois(self, stacks_dev: torch.Tensor, dets: list) -> list:
-        """Batched orientation-ROI readback. ``dets`` holds
-        (t, y1, y2, x1, x2) with raw (possibly negative / overshooting)
-        box coords; each entry resolves with python plain-slice semantics
-        -- exactly what ``stacks_dev[t, y1:y2, x1:x2]`` did -- then all
-        in-window ROIs arrive as one [N, p, p] device gather + a single
-        device->host copy (gray-converted on device, bit-equal to cv2's
-        BGR2GRAY). Oversize ROIs (> _ROI_WIN) fall back to an individual
-        copy. Returns gray u8 arrays (size 0 when the slice is empty),
-        one per det."""
-        h, w = int(stacks_dev.shape[1]), int(stacks_dev.shape[2])
-        p = int(min(_ROI_WIN, h, w))
-        out: list = [None] * len(dets)
-        pend: list = []   # (det_idx, oy, ox, bh, bw)
-        origins: list = []  # (t, y0, x0)
-        for i, (t, y1, y2, x1, x2) in enumerate(dets):
-            y1c, y2c, _ = slice(int(y1), int(y2)).indices(h)
-            x1c, x2c, _ = slice(int(x1), int(x2)).indices(w)
-            bh, bw = max(0, y2c - y1c), max(0, x2c - x1c)
-            if bh == 0 or bw == 0:
-                out[i] = np.zeros((bh, bw), np.uint8)
-                continue
-            if bh > p or bw > p:
-                with torch.inference_mode():
-                    out[i] = _gray_i32(stacks_dev[t, y1c:y2c, x1c:x2c]).to(
-                        torch.uint8).cpu().numpy()
-                continue
-            y0 = min(y1c, h - p)
-            x0 = min(x1c, w - p)
-            pend.append((i, y1c - y0, x1c - x0, bh, bw))
-            origins.append((t, y0, x0))
-        if pend:
-            with torch.inference_mode():
-                ts, ys, xs = torch.tensor(origins, dtype=torch.int64,
-                                          device=stacks_dev.device).unbind(1)
-                wins = _gather_gray_rois(stacks_dev, ts, ys, xs,
-                                         p).cpu().numpy()
-            for (i, oy, ox, bh, bw), win in zip(pend, wins):
-                out[i] = win[oy:oy + bh, ox:ox + bw]
-        return out
-
     def _orient_results(self, stacks_dev, batch_out: list, orient=None,
                         rowidx=None) -> list[FrameResult]:
-        results: list[FrameResult] = []
-        dets: list = []       # (t, y1, y2, x1, x2)
-        drcts: list = []      # device-computed angle or None (host leg)
-        use_dev = orient is not None and rowidx is not None
-        for t, (pos, cls) in enumerate(batch_out):
-            for i, coords in enumerate(pos):
-                if use_dev:
-                    r = int(rowidx[t][i])
-                    if r < len(orient) and orient[r][3] > 0:
-                        sc, cc, wtot, _ = orient[r]
-                        drcts.append(
-                            float(np.arctan2(sc, cc) % (2 * np.pi))
-                            if wtot > 0 else float("nan"))
-                        continue
-                box = Box.from_list(list(coords))
-                dets.append((t, box.y1, box.y2, box.x1, box.x2))
-                drcts.append(None)
-        rois = self._fetch_gray_rois(stacks_dev, dets) if dets else []
-        roi_iter = iter(rois)
-        # orient each box diagonal along the dominant gradient direction
-        # (reference MetLib/Detector.py:549-554); device-computed angles
-        # (the compact path) resolved above, host-fetched ROIs here
-        di = 0
-        for t, (pos, cls) in enumerate(batch_out):
-            for i in range(len(pos)):
-                drct = drcts[di]
-                di += 1
-                if drct is None:
-                    roi = next(roi_iter)
-                    if roi.size == 0:
-                        continue
-                    drct = calc_roi_gradient(roi)
-                if not np.isnan(drct) and int(drct // (np.pi / 2)) % 2 == 1:
-                    pos[i, [1, 3]] = pos[i, [3, 1]]
-        for t, (pos, cls) in enumerate(batch_out):
-            if len(pos) == 0:
-                results.append((np.zeros((0, 4), int),
-                                np.zeros((0, self.num_cls))))
-                continue
-            self.result_pos = pos
-            results.append((pos, expand_cls_pred(cls)))
+        results = orient_results(stacks_dev, batch_out, self.num_cls,
+                                 orient, rowidx)
+        for pos, _ in results:
+            if len(pos):
+                self.result_pos = pos
         return results
 
     def visu(self):

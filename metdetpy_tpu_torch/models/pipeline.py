@@ -15,6 +15,12 @@ keep its candidates on the device and runs ``forward_batch`` per batch.
 Nothing switches from one to the other on an exception. (The reference
 has no analog: it runs one onnxruntime session call per image under a
 global lock, MetLib/model.py:341-383.)
+
+With ``sharding`` (a ``parallel.mesh.DeviceMesh``, see
+``parallel.dataparallel.batch_sharding``) the device path pads each batch
+to a multiple of the mesh size with copies of its last image, splits it
+over the mesh's devices and dispatches each part on a replica of the model
+on its device; the padded rows' results are dropped.
 """
 
 from __future__ import annotations
@@ -32,21 +38,22 @@ class BatchPipeline:
     the rest."""
 
     def __init__(self, model, inflight: int = 1, sharding=None) -> None:
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding a batch over devices comes with the multi-device "
-                "slice of the PyTorch/CUDA port")
         self.model = model
         self.inflight = max(int(inflight), 0)
         self.device_path = bool(getattr(model, "nms", False))
+        self.sharding = sharding
+        self._replicas = None
+        if sharding is not None and self.device_path:
+            from ..parallel.dataparallel import model_replica
+            self._replicas = [model_replica(model, dev)
+                              for dev, _, _ in sharding.groups()]
         self._q: collections.deque = collections.deque()
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """The batch on the model's device: through a pinned host copy on
-        a card (the copy is enqueued and the host returns), as it is on
-        the CPU."""
+    @staticmethod
+    def _upload(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """The batch on ``dev``: through a pinned host copy on a card (the
+        copy is enqueued and the host returns), as it is on the CPU."""
         src = torch.from_numpy(np.ascontiguousarray(x))
-        dev = self.model.device
         if dev.type != "cuda":
             return src
         staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
@@ -65,12 +72,22 @@ class BatchPipeline:
         x = imgs
         if x.ndim == 3 or x.shape[-1] != 3:
             x = np.stack([_ensure_3ch(im) for im in x])
-        return self.model.dispatch_batch_device(self._upload(x))
+        if self._replicas is None:
+            return [self.model.dispatch_batch_device(
+                self._upload(x, self.model.device))]
+        from ..parallel.dataparallel import put_batch_sharded
+        parts, _ = put_batch_sharded(x, self.sharding, self._upload)
+        return [m.dispatch_batch_device(p)
+                for m, p in zip(self._replicas, parts)]
 
     def _collect(self, entry) -> list:
-        tags, handle = entry
-        outs = (self.model.collect_batch_device(handle) if self.device_path
-                else handle)
+        tags, handles = entry
+        if not self.device_path:
+            return list(zip(tags, handles))
+        models = self._replicas or [self.model]
+        outs = [r for m, h in zip(models, handles)
+                for r in m.collect_batch_device(h)]
+        # zip drops the results of the padded rows
         return list(zip(tags, outs))
 
     def submit(self, tags: list, imgs: np.ndarray) -> list:

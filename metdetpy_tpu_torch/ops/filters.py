@@ -85,6 +85,11 @@ def close3x3(img: torch.Tensor) -> torch.Tensor:
     return erode3x3(dilate3x3(img))
 
 
+def open3x3(img: torch.Tensor) -> torch.Tensor:
+    """Morphological opening with a 3x3 rect kernel (erode then dilate)."""
+    return dilate3x3(erode3x3(img))
+
+
 def binary_threshold(img: torch.Tensor, thresh,
                      maxval: int = 255) -> torch.Tensor:
     """cv2.THRESH_BINARY: maxval where img > thresh else 0, as uint8.

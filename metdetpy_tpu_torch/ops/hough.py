@@ -310,3 +310,13 @@ def hough_lines_batch(dst: torch.Tensor, max_gap: torch.Tensor, *,
         out_over.append(overflow)
     return HoughResult(torch.cat(out_lines), torch.cat(out_valid),
                        torch.cat(out_npix), torch.cat(out_over))
+
+
+def hough_lines_single(dst: torch.Tensor, max_gap: float, *, threshold: int,
+                       min_len: int, **kw) -> HoughResult:
+    """Single-image convenience wrapper: [H, W] -> a HoughResult of one
+    frame."""
+    return hough_lines_batch(
+        dst[None], torch.tensor([max_gap], dtype=torch.float32,
+                                device=dst.device),
+        threshold=threshold, min_len=min_len, **kw)

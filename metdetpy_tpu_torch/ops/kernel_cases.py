@@ -1,6 +1,9 @@
 """Ragged inputs that hold ``hough_vote`` and ``walk_pick`` against their
 plain versions: odd sizes, empty and degenerate point lists, the largest
-n_rho, rows outside the plane and storage that is not 16-byte aligned.
+n_rho, rows outside the plane and storage that is not 16-byte aligned;
+and the stream axis of ``window_diff``: one or several streams, blocks
+shorter than the history, per-stream timers, and histories that are views
+of the previous block's frames (streams T frames apart, not n-1).
 
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py`` run the same lists
 on a card; the inputs are made from a seed with numpy.
@@ -48,6 +51,36 @@ PICK_CASES = [
     ("beyond", 2, 20, 1024, "beyond", 0),
     ("offset4", 3, 20, 1024, "random", 4),
 ]
+
+
+# (id, S, T, n, h, w, timer0, timer_step, history): history "own" is a
+# contiguous [S, n-1, H, W] tensor, "view" the last n-1 frames of each
+# stream of a longer previous block (as the detectors carry it).
+WINDOW_DIFF_STREAM_CASES = [
+    ("s1", 1, 64, 25, 540, 960, 0, 0, "own"),
+    ("s3_short", 3, 16, 25, 37, 150, 5, 0, "own"),
+    ("s3_view", 3, 64, 25, 37, 960, 10, 0, "view"),
+    ("s2_view_ragged", 2, 10, 4, 3, 5, 0, 0, "view"),
+    ("s4_steps", 4, 12, 9, 21, 40, 0, 12, "own"),
+    ("s3_steps_view", 3, 30, 25, 37, 160, 3, 7, "view"),
+    ("s3_n1", 3, 8, 1, 37, 150, 0, 0, "own"),
+]
+
+
+def window_diff_stream_case(case, dev, seed: int):
+    """(history, frames, n, timer0, timer_step) of one of
+    WINDOW_DIFF_STREAM_CASES."""
+    _, s, t, n, h, w, timer0, step, hist = case
+    rng = np.random.default_rng([seed, s, t, n, h, w])
+    frames = rng.integers(0, 256, (s, t, h, w), dtype=np.uint8)
+    if hist == "view":
+        prev = torch.from_numpy(rng.integers(
+            0, 256, (s, n - 1 + 7, h, w), dtype=np.uint8)).to(dev)
+        history = prev[:, 7:]
+    else:
+        history = torch.from_numpy(rng.integers(
+            0, 256, (s, n - 1, h, w), dtype=np.uint8)).to(dev)
+    return history, torch.from_numpy(frames).to(dev), n, timer0, step
 
 
 def _place(a: np.ndarray, dev, offset: int) -> torch.Tensor:

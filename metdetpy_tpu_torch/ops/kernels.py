@@ -45,7 +45,7 @@ _L = ctypes.c_longlong
 # kernel name -> (source file, C entry point, argtypes)
 SOURCES = {
     "window_diff": ("window_diff.cu", "mdt_window_diff",
-                    [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
+                    [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _P]),
     "median_binarize_close": ("median_binarize_close.cu",
                               "mdt_median_binarize_close",
                               [_P, _P, _P, _I, _I, _I, _P]),
@@ -212,42 +212,69 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, device,
 # Herk/Gil-Werman (segment suffix maxima in shared memory, a running prefix
 # max in registers, ~3 max per output on byte pairs); the 16 window sums
 # stay in registers and the floor mean is a reciprocal multiply, exact in
-# range.
+# range. A leading stream axis (S feeds, or S time shards) is the grid's
+# second dimension: one launch for all streams, each stream's history read
+# at its own offset (a view of the previous block's frames lies T frames
+# apart from stream to stream, not n-1), so no history is copied.
 
 
 def window_diff_plain(history: torch.Tensor, frames: torch.Tensor, n: int,
-                      timer0: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      timer0: int, timer_step: int = 0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Spec: ``windows.window_stats(...).diff`` and the new history."""
-    stats, new_hist = windows.window_stats(history, frames, n, timer0)
+    stats, new_hist = windows.window_stats(history, frames, n, timer0,
+                                           timer_step)
     return stats.diff, new_hist
 
 
 def window_diff(history: torch.Tensor, frames: torch.Tensor, n: int,
-                timer0: int) -> tuple[torch.Tensor, torch.Tensor]:
+                timer0: int, timer_step: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Trailing-window (max - integer mean) over a [T, H, W] u8 block with
-    an [n-1, H, W] u8 history carried in. Returns (diff [T, H, W] u8,
-    new_history [n-1, H, W] u8). On the card, where n-1 <= T, new_history
-    is a view of the last n-1 frames of ``frames``: the caller must not
-    write to ``frames`` while it holds the history."""
+    an [n-1, H, W] u8 history carried in, or over S streams at once:
+    frames [S, T, H, W] with history [S, n-1, H, W], stream s starting at
+    frame timer0 + s * timer_step. Returns (diff, new_history) of the
+    frames' and the history's shapes. ``frames`` is contiguous; each
+    stream's history is contiguous, the streams any distance apart.
+
+    On the card, where n-1 <= T, new_history is a view of the last n-1
+    frames of each stream of ``frames``: the caller must not write to
+    ``frames`` while it holds the history."""
     if not _on_card(frames, "window_diff"):
-        return window_diff_plain(history, frames, n, timer0)
-    t_block, h, w = frames.shape
+        return window_diff_plain(history, frames, n, timer0, timer_step)
+    streams = frames.dim() == 4
+    f4 = frames if streams else frames[None]
+    h4 = history if streams else history[None]
+    n_streams, t_block, h, w = f4.shape
     dev = frames.device
     _check("window_diff", frames, torch.uint8, dev)
-    _check("window_diff", history, torch.uint8, dev, (n - 1, h, w))
+    if history.device != dev or history.dtype != torch.uint8:
+        raise TypeError(f"window_diff: history is {history.dtype} on "
+                        f"{history.device}, expected torch.uint8 on {dev}")
+    if tuple(h4.shape) != (n_streams, n - 1, h, w):
+        raise ValueError(f"window_diff: history shape "
+                         f"{tuple(history.shape)} does not fit frames "
+                         f"{tuple(frames.shape)} and n={n}")
+    if n_streams and not h4[0].is_contiguous():
+        raise ValueError("window_diff: each stream's history must be "
+                         "contiguous")
     if n < 1 or n > 1536:
         raise ValueError(f"window_diff: window n={n} outside [1, 1536]")
-    if timer0 < 0:
-        raise ValueError(f"window_diff: timer0={timer0} is negative")
+    if timer0 < 0 or timer_step < 0:
+        raise ValueError(f"window_diff: timer0={timer0}, timer_step="
+                         f"{timer_step}: negative")
     diff = torch.empty_like(frames)
     if n - 1 <= t_block:
-        new_hist, hist_ptr = frames[t_block - (n - 1):], 0
+        new_hist, hist_ptr = frames[..., t_block - (n - 1):, :, :], 0
     else:
-        new_hist = torch.empty_like(history)
+        new_hist = torch.empty(tuple(history.shape), dtype=torch.uint8,
+                               device=dev)
         hist_ptr = new_hist.data_ptr()
-    _launch("window_diff", frames, history.data_ptr(), frames.data_ptr(),
+    # len = min(timer + 1 + t, n): timers past n all give n
+    _launch("window_diff", frames, h4.data_ptr(), frames.data_ptr(),
             diff.data_ptr(), hist_ptr, h * w, n, t_block,
-            int(min(timer0, n)))  # len = min(timer0 + 1 + t, n) either way
+            int(min(timer0, n)), n_streams, h4.stride(0),
+            int(min(timer_step, n)))
     return diff, new_hist
 
 

@@ -17,8 +17,10 @@ The arguments of ``MetDetPhoto.py`` (reference MetDetPhoto.py:98-334) plus
 
 An exception ends the run (in the folder mode too: no partial result is
 written); only ``KeyboardInterrupt`` stops the folder loop and keeps what
-was found so far. ``--data-parallel`` greater than 1 comes with the
-multi-device slice and is refused.
+was found so far. ``--data-parallel N`` (N > 1) splits each batch of the
+folder and timelapse modes over N cards, one model replica each
+(``parallel.dataparallel``), not in ``--visu`` mode, which shows one image
+at a time; with fewer cards it ends with "need N devices, have M".
 """
 
 from __future__ import annotations
@@ -106,8 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--partition", "-P", type=int, default=2,
                         help="partition in pyramid.")
     parser.add_argument("--data-parallel", type=int, default=0,
-                        help="shard each batch over N devices (not ported "
-                             "yet; 0 or 1 = one device).")
+                        help="split each batch over N devices (0 or 1: one "
+                             "device).")
     parser.add_argument("--visu", "-V", action="store_true",
                         help="show detect results.")
     parser.add_argument("--visu-resolution", "-R", type=str,
@@ -128,7 +130,8 @@ def _record_from(boxes, probs, id2name, **kw) -> SingleImgRecord:
         prob=[f"{p[int(np.argmax(p))]:.2f}" for p in probs], **kw)
 
 
-def _run_folder(args, model, logger, id2name, visu_resolution, results):
+def _run_folder(args, model, logger, id2name, visu_resolution, results,
+                sharding=None):
     """Folder mode: ordered parallel decode, batched inference, the
     dispatch of batch N+1 overlapping the postprocess of batch N (one
     image at a time and synchronous in --visu mode). Returns the MDRF's
@@ -141,7 +144,10 @@ def _run_folder(args, model, logger, id2name, visu_resolution, results):
                                    flag=args.visu)
     img_loader = MultiThreadImgLoader(img_list, logger=logger)
     batch_cap = 1 if args.visu else PHOTO_BATCH_SIZE
-    pipeline = BatchPipeline(model, inflight=0 if args.visu else 1)
+    # visu mode runs single-image batches: sharding would pad each to N
+    # copies, so it stays off there
+    pipeline = BatchPipeline(model, inflight=0 if args.visu else 1,
+                             sharding=None if args.visu else sharding)
     pending: list[tuple[str, np.ndarray]] = []
 
     def process_done(done) -> bool:
@@ -223,7 +229,8 @@ def _run_single_image(args, model, logger, id2name, visu_resolution):
     return MockVideoObject(image_folder=input_path), results
 
 
-def _run_timelapse(args, model, logger, id2name, visu_resolution, results):
+def _run_timelapse(args, model, logger, id2name, visu_resolution, results,
+                   sharding=None):
     """Timelapse mode: every frame of the video is a photo, batched as the
     folder's images are. Returns the MDRF's basic info (the loader's
     summary)."""
@@ -236,7 +243,8 @@ def _run_timelapse(args, model, logger, id2name, visu_resolution, results):
         visual_manager = OpenCVMetVisu(exp_time=1, resolution=visu_resolution,
                                        flag=args.visu)
         cap = 1 if args.visu else PHOTO_BATCH_SIZE
-        pipeline = BatchPipeline(model, inflight=0 if args.visu else 1)
+        pipeline = BatchPipeline(model, inflight=0 if args.visu else 1,
+                                 sharding=None if args.visu else sharding)
         pending: list[tuple[int, np.ndarray]] = []
 
         def process_done(done) -> bool:
@@ -287,9 +295,10 @@ def _run_timelapse(args, model, logger, id2name, visu_resolution, results):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    sharding = None
     if args.data_parallel > 1:
-        raise SystemExit("--data-parallel comes with the multi-device slice "
-                         "of the PyTorch/CUDA port")
+        from .parallel.dataparallel import batch_sharding
+        sharding = batch_sharding(args.data_parallel, device=args.device)
     if args.resource_dir:
         set_resource_dir(args.resource_dir)
     if args.model_path is None:
@@ -310,12 +319,15 @@ def main(argv=None) -> None:
         model_path, dtype="bfloat16", nms=True, warmup=True, logger=logger,
         multiscale_pred=args.scale, multiscale_partition=args.partition,
         device=args.device)
+    if sharding is not None:
+        logger.info(f"Data-parallel inference over {sharding.size} "
+                    "devices.")
     logger.start()
     results: list[SingleImgRecord] = []
     try:
         if os.path.isdir(input_path):
             info = _run_folder(args, model, logger, id2name,
-                                visu_resolution, results)
+                               visu_resolution, results, sharding)
         elif os.path.isfile(input_path):
             suffix = input_path.split(".")[-1].lower()
             if suffix in [s.lower() for s in SUPPORT_ALL_IMG_FORMAT]:
@@ -323,7 +335,7 @@ def main(argv=None) -> None:
                     args, model, logger, id2name, visu_resolution)
             elif suffix in SUPPORT_VIDEO_FORMAT:
                 info = _run_timelapse(args, model, logger, id2name,
-                                       visu_resolution, results)
+                                      visu_resolution, results, sharding)
             else:
                 raise NotImplementedError(
                     f"Unsupported file suffix \"{suffix}\"; supported: "

@@ -16,8 +16,9 @@ import torch
 
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.ops import hough, kernels
-from metdetpy_tpu_torch.ops.kernel_cases import (PICK_CASES, VOTE_CASES,
-                                                 pick_case, vote_case)
+from metdetpy_tpu_torch.ops.kernel_cases import (
+    PICK_CASES, VOTE_CASES, WINDOW_DIFF_STREAM_CASES, pick_case, vote_case,
+    window_diff_stream_case)
 from metdetpy_tpu_torch.structs import MainDetectCfg
 from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
 from metdetpy_tpu_torch.utils import relative2abs_path
@@ -126,6 +127,42 @@ def test_window_diff_on_card_ragged(cuda_device, h, w, n, t_block, timer0,
     assert kernels.LAUNCHES["window_diff"] == 1
     want, want_hist = kernels.window_diff_plain(history, frames, n, timer0)
     assert torch.equal(diff, want) and torch.equal(new_hist, want_hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_DIFF_STREAM_CASES,
+                         ids=[c[0] for c in WINDOW_DIFF_STREAM_CASES])
+def test_window_diff_stream_axis_on_card(cuda_device, case):
+    """S streams in one launch, against the plain version; the history a
+    strided view of a previous block in the "view" cases."""
+    args = window_diff_stream_case(case, cuda_device, SEED)
+    if case[-1] == "view":
+        assert not args[0].is_contiguous() and args[0][0].is_contiguous()
+    kernels.reset_launch_counts()
+    diff, new_hist = kernels.window_diff(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_diff"] == 1
+    want, want_hist = kernels.window_diff_plain(*args)
+    assert torch.equal(diff, want) and torch.equal(new_hist, want_hist)
+    # the next block takes the new history (a view where n-1 <= T)
+    nxt = torch.randint(0, 256, args[1].shape, dtype=torch.uint8,
+                        device=cuda_device)
+    got2 = kernels.window_diff(new_hist, nxt, *args[2:])
+    want2 = kernels.window_diff_plain(want_hist, nxt, *args[2:])
+    assert torch.equal(got2[0], want2[0]) and torch.equal(got2[1], want2[1])
+
+
+@pytest.mark.cuda
+def test_window_diff_streams_equal_single_streams_on_card(cuda_device):
+    """The stream launch equals one launch per stream."""
+    args = window_diff_stream_case(WINDOW_DIFF_STREAM_CASES[5], cuda_device,
+                                   SEED)
+    hist, frames, n, timer0, step = args
+    diff, _ = kernels.window_diff(*args)
+    for i in range(frames.shape[0]):
+        one, _ = kernels.window_diff(hist[i], frames[i], n,
+                                     timer0 + i * step)
+        assert torch.equal(diff[i], one)
 
 
 @pytest.mark.cuda

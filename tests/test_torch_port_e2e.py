@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -95,20 +96,36 @@ def test_device_failure_recovery(synth_frames, monkeypatch):
     assert _meteors(mdrf), "meteor lost after recovered fault"
 
 
-def test_unported_options_raise(synth_frames):
-    """What is still to be ported raises: the time-sharded mode and a batch
-    sharded over devices. Checkpoint/resume is ported
-    (tests/test_torch_port_checkpoint.py); a resume without a checkpoint
-    file is refused. The video writers are ported
-    (tests/test_torch_port_videowriter.py)."""
+def test_unported_options_raise(synth_frames, video_file, tmp_path):
+    """What used to be refused now runs: the time-sharded mode of the CLI
+    (``--temporal-shards 2 --device cpu``: two shards on the CPU) and a
+    batch pipeline sharded over a mesh; only a resume without a checkpoint
+    file is still refused. Checkpoint/resume is ported
+    (tests/test_torch_port_checkpoint.py), the video writers too
+    (tests/test_torch_port_videowriter.py), the parallel modules in
+    tests/test_torch_port_{parallel,temporal,parallel_dldet}.py."""
     from metdetpy_tpu_torch.models.pipeline import BatchPipeline
+    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
     with pytest.raises(ValueError, match="checkpoint_path"):
         detect_video(synth_frames, None, _cfg(TMainDetectCfg), resume=True,
                      device="cpu")
-    with pytest.raises(SystemExit):
-        cli_main(["x.avi", "--temporal-shards", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        BatchPipeline(None, sharding=object())
+    out = tmp_path / "temporal.json"
+    cli_main([video_file, "--temporal-shards", "2", "--device", "cpu",
+              "--mode", "backend", "--exp-time", "real-time", "--recheck",
+              "off", "--save-path", str(out)])
+    mdrf = json.loads(out.read_text())
+    assert mdrf["type"] == "prediction" and mdrf["basic_info"]["video"] \
+        == video_file
+
+    class Model:
+        nms = False
+
+        def forward_batch(self, imgs):
+            return [([], [])] * len(imgs)
+
+    pipe = BatchPipeline(Model(), inflight=0, sharding=shared_mesh(2, "cpu"))
+    assert pipe.submit(["a", "b", "c"], np.zeros((3, 8, 8, 3), np.uint8)) \
+        == [("a", ([], [])), ("b", ([], [])), ("c", ([], []))]
 
 
 @pytest.fixture(scope="module")

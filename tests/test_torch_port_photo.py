@@ -301,14 +301,37 @@ def test_batch_pipeline_settles_its_path_once(monkeypatch):
     assert BatchPipeline(m, inflight=0).submit(["a", "b"], imgs) == [
         ("a", ([], [])), ("b", ([], []))]
     assert m.calls == ["host"]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        BatchPipeline(m, sharding=object())
+    # a mesh changes neither path: the host path does not shard (as in
+    # the JAX package), the device path's failure still propagates
+    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
+    m = Model(nms=False)
+    assert BatchPipeline(m, inflight=0, sharding=shared_mesh(2, "cpu")
+                         ).submit(["a"], imgs[:1]) == [("a", ([], []))]
+    assert m.calls == ["host"]
+    m = Model(nms=True)
+    with pytest.raises(NotImplementedError, match="device path failed"):
+        BatchPipeline(m, inflight=0, sharding=shared_mesh(2, "cpu")).submit(
+            ["a", "b", "c"], np.zeros((3, 8, 8, 3), np.uint8))
+    assert m.calls == ["device"]
 
 
-def test_data_parallel_and_cuda_without_a_card_raise(photo_dir):
-    with pytest.raises(SystemExit, match="multi-device"):
-        photo.main([str(photo_dir), "--data-parallel", "2", "--device",
-                    "cpu"])
+def test_data_parallel_and_cuda_without_a_card_raise(photo_dir, tmp_path,
+                                                    monkeypatch):
+    """``--data-parallel 2`` now runs (two shards on the CPU with
+    ``--device cpu``) and writes the records of the unsharded run, within
+    the tolerance of MetDetPhoto.py's ``--data-parallel 2``; the default
+    ``cuda`` still raises without a card."""
+    got = {}
+    for dp in ("0", "2"):
+        out = tmp_path / f"dp{dp}.json"
+        _run_port([str(photo_dir), "--scale", "1", "--data-parallel", dp,
+                   "--save-path", str(out)], monkeypatch)
+        got[dp] = json.loads(out.read_text())
+    assert got["2"] == got["0"] and got["2"]["results"]
+    want = tmp_path / "jax.json"
+    _run_jax([str(photo_dir), "--scale", "1", "--data-parallel", "2",
+              "--save-path", str(want)], monkeypatch)
+    _assert_records_close(got["2"], json.loads(want.read_text()))
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal is not reachable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
