@@ -112,6 +112,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    images, padded to 12) against the unsharded pipeline, and
    ``python -m metdetpy_tpu_torch.photo --data-parallel 2`` on one card
    ending with "need 2 devices, have 1".
+17. Train and evaluate: full-width YOLOv5s at ``fit_synthetic``'s
+   defaults (320x320, batch 8, nc 8). (a) One step from the shipped
+   weights in a float32 body on the card against the CPU (loss rtol 1e-5,
+   every gradient rtol 2e-4 with atol 2e-4 x max|g|), then in the shipped
+   bfloat16 body (loss within 1% of the float32 CPU loss, gradients
+   finite). (b) 8 bfloat16 steps on a fixed batch from ``init_params``
+   with Adam 3e-3: the last loss under 0.8x the first; a step's device
+   time (CUDA events behind a device sleep), its host-paced time and the
+   idle share of a profiled step. (c) ``python -m
+   metdetpy_tpu_torch.train --steps 40 --device cuda``'s entry point
+   (steps/s, host ``synth_batch`` seconds a step, peak device memory); the
+   npz it writes loaded through ``YOLOModel`` gives the trained module's
+   heads bit for bit. (d) ``python -m metdetpy_tpu_torch.evaluate
+   --metric`` on the annotated 256x144 clip on the card and on the CPU:
+   recall 1.0 and the same summary.
 
 Phase 2 also times window_diff over 8 streams in one launch (frames
 [8, 64, 540, 960], the history a view of the block before), exact against
@@ -1783,6 +1798,187 @@ def phase_data_parallel(card: str) -> None:
           flush=True)
 
 
+TRAIN_HW, TRAIN_BATCH = (320, 320), 8   # fit_synthetic's defaults
+
+
+def _train_grads(sd: dict, imgs, targets, dev: str, dtype):
+    """Loss and gradients of one training forward/backward of YOLOv5s
+    (nc 8) with the state dict ``sd`` on ``dev`` in ``dtype``."""
+    from metdetpy_tpu_torch.models import train, yolov5
+    net = yolov5.YOLOv5(nc=8, dtype=dtype)
+    net.load_state_dict(sd, strict=True)
+    net = net.to(dev)
+    x, tg = train._place(imgs, targets, torch.device(dev))
+    loss = train.yolo_loss(net(x), tg, 8)
+    loss.backward()
+    return float(loss), {k: p.grad.cpu() for k, p in net.named_parameters()}
+
+
+def phase_train(card: str) -> None:
+    """The training path on the card at fit_synthetic's defaults
+    (full-width YOLOv5s, 320x320, batch 8, nc 8): (a) one step from the
+    shipped weights, float32 on the card against the CPU, then the
+    bfloat16 body; (b) 8 steps on a fixed batch; (c) ``python -m
+    metdetpy_tpu_torch.train --steps 40``'s entry point and its npz
+    through ``YOLOModel``; (d) ``python -m metdetpy_tpu_torch.evaluate``'s
+    entry point on the annotated clip, card against CPU."""
+    import copy
+    import io
+    from metdetpy_tpu_torch import evaluate
+    from metdetpy_tpu_torch import train as train_cli
+    from metdetpy_tpu_torch.models import train, yolov5
+    from metdetpy_tpu_torch.models.weights import params_from_flax
+    from metdetpy_tpu_torch.models.yolo import YOLOModel
+    from metdetpy_tpu_torch.structs import MainDetectCfg
+    from metdetpy_tpu_torch.synth import write_annotated_clip
+    from metdetpy_tpu_torch.utils import relative2abs_path
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    with np.load(relative2abs_path("./weights/yolov5s_v5.flax.npz")) as d:
+        sd = params_from_flax({k: d[k] for k in d.files})
+    imgs, targets = train.synth_batch(np.random.default_rng(SEED + 9),
+                                      TRAIN_BATCH, TRAIN_HW, 8)
+
+    # (a) one step, the card against the CPU (TF32 off, as main sets it)
+    want_loss, want = _train_grads(sd, imgs, targets, "cpu", torch.float32)
+    loss, grads = _train_grads(sd, imgs, targets, "cuda", torch.float32)
+    if abs(loss - want_loss) > 1e-5 * abs(want_loss):
+        fail(f"train (a): float32 loss {loss} on the card, {want_loss} on "
+             "the CPU (rtol 1e-5)")
+    worst = 0.0
+    for k, g in want.items():
+        err = float((grads[k] - g).abs().max()) / max(float(g.abs().max()),
+                                                      1e-30)
+        worst = max(worst, err)
+        if not torch.allclose(grads[k], g, rtol=2e-4,
+                              atol=2e-4 * float(g.abs().max())):
+            fail(f"train (a): float32 gradient {k} on the card differs from "
+                 f"the CPU's (rtol 2e-4, atol 2e-4 x max|g|; {err:.3g})")
+    bf16_loss, bf16_grads = _train_grads(sd, imgs, targets, "cuda",
+                                         torch.bfloat16)
+    if not (np.isfinite(bf16_loss)
+            and abs(bf16_loss - want_loss) <= 0.01 * abs(want_loss)):
+        fail(f"train (a): bfloat16 loss {bf16_loss} on the card against "
+             f"{want_loss} float32 on the CPU (rtol 0.01)")
+    if not all(torch.isfinite(g).all() for g in bf16_grads.values()):
+        fail("train (a): a bfloat16 gradient on the card is not finite")
+    print(f"train (a) on {card}: one step of YOLOv5s, {TRAIN_BATCH}x"
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, shipped weights: float32 loss "
+          f"{loss:.9g} (CPU {want_loss:.9g}), {len(want)} gradients within "
+          f"rtol 2e-4 / atol 2e-4 x max|g| (largest error {worst:.3g} of "
+          f"max|g|); bfloat16 loss {bf16_loss:.9g} (rtol "
+          f"{abs(bf16_loss - want_loss) / abs(want_loss):.3g})", flush=True)
+
+    # (b) 8 steps on a fixed batch (tests/test_train.py's criterion), the
+    # device time of a step and the idle share of a profiled one
+    model = yolov5.init_params(nc=8, input_hw=TRAIN_HW, seed=0,
+                               device="cuda")
+    step = train.make_train_step(model, train.Adam(model.parameters(), 3e-3),
+                                 8)
+    x, tg = train._place(imgs, targets, dev)
+    losses = [float(step(x, tg)) for _ in range(8)]
+    if not losses[-1] < 0.8 * losses[0]:
+        fail(f"train (b): the loss did not fall on a fixed batch: {losses}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step(x, tg)
+    torch.cuda.synchronize()
+    paced_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda._sleep(1_000_000_000)   # ~0.5 s: the host queues 10 steps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        step(x, tg)
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / 10
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, tg)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = _device_busy(prof)
+    print(f"train (b) on {card}: 8 bfloat16 steps on a fixed batch from "
+          f"init_params(seed=0), Adam 3e-3: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; a step {device_ms:.3f} device ms (CUDA events, "
+          f"10 steps queued behind a device sleep), {paced_ms:.3f} ms "
+          f"host-paced; profiled step {prof_ms:.3f} ms wall, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / prof_ms:.4f} "
+          f"(against the unprofiled host-paced step: "
+          f"{1 - busy_ms / paced_ms:.4f}); largest {top}", flush=True)
+    del model, step, x, tg
+
+    # (c) the train entry point, its npz through YOLOModel's weight path
+    os.makedirs(FILES, exist_ok=True)
+    out = os.path.join(FILES, "train.flax.npz")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        trained = train_cli.main(["--steps", "40", "--device", "cuda",
+                                  "--out", out])
+    stats = json.loads(log.getvalue().strip().splitlines()[-1])
+    loaded = YOLOModel(out, warmup=False, input_hw=TRAIN_HW, device="cuda")
+    mine = copy.deepcopy(trained).eval().requires_grad_(False)
+    mine = mine.to(memory_format=torch.channels_last).cast_body_weights_()
+    with torch.inference_mode():
+        xs = torch.from_numpy(imgs[:2]).to(dev)
+        got, want_heads = loaded.model(xs), mine(xs)
+    if not all(torch.equal(a, b) for a, b in zip(got, want_heads)):
+        fail("train (c): the heads of the npz loaded through YOLOModel "
+             "differ from the trained module's")
+    print(f"train (c) on {card}: python -m metdetpy_tpu_torch.train --steps "
+          f"40 --device cuda: {stats['steps_per_s']:.3f} steps/s "
+          f"({stats['seconds']:.3f} s), host synth_batch "
+          f"{stats['synth_batch_s_per_step']:.4f} s a step, the step to its "
+          f"loss on the host {stats['step_s_per_step']:.4f} s a step; "
+          f"device step {device_ms:.3f} ms and idle share "
+          f"{1 - busy_ms / prof_ms:.4f} (b); max_memory_allocated "
+          f"{stats['max_memory_allocated'] / 2**20:.1f} MiB; the saved "
+          f"npz's heads through YOLOModel equal the trained module's bit for "
+          f"bit; {card}", flush=True)
+
+    # (d) the evaluate entry point on the annotated clip, card and CPU
+    clip_dir = os.path.join(FILES, "evaluate")
+    anno = write_annotated_clip(clip_dir)
+    cfg = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json"))
+    cfg.loader.name = "BlockVideoLoader"
+    cfg.loader.resize = None
+    cfg.loader.exp_time = "real-time"
+    cfg.collector.recheck_cfg.switch = False
+    cfg_path = os.path.join(clip_dir, "cfg.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(cfg.to_dict(), f)
+    summaries = {}
+    for name in ("cuda", "cpu"):
+        run_dir = os.path.join(clip_dir, name)
+        os.makedirs(run_dir)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(run_dir), contextlib.redirect_stdout(buf):
+            evaluate.main([anno, "--cfg", cfg_path, "--metric", "--device",
+                           name])
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        table = text.index("PRED\\BASE")
+        summaries[name] = (text[text.rindex("{'", 0, table):table].strip(),
+                           wall)
+    if "'recall': 1.0" not in summaries["cuda"][0]:
+        fail(f"evaluate on the card: recall is not 1.0: {summaries['cuda']}")
+    if summaries["cuda"][0] != summaries["cpu"][0]:
+        fail(f"evaluate: the card's summary {summaries['cuda'][0]} differs "
+             f"from the CPU's {summaries['cpu'][0]}")
+    prec = summaries["cuda"][0].split("'precision': ")[1].split(",")[0]
+    print(f"train (d) on {card}: python -m metdetpy_tpu_torch.evaluate "
+          f"--metric on the annotated 256x144 clip: recall 1.0, precision "
+          f"{prec} on the card ({summaries['cuda'][1]:.1f} s) and on the CPU "
+          f"({summaries['cpu'][1]:.1f} s), summaries equal; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
@@ -1824,6 +2020,7 @@ def main() -> None:
     temporal_launches = phase_temporal(card, clip)
     del clip
     phase_data_parallel(card)
+    phase_train(card)
     shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]

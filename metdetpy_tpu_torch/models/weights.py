@@ -4,15 +4,17 @@ Counterpart of ``metdetpy_tpu/models/weights.py``. The shipped weights
 (``weights/*.flax.npz``) are the flattened parameter tree of the JAX
 package's flax model; this module provides
 
-  - npz load of that tree (``load_params``, ``flatten_tree``,
-    ``unflatten_tree``),
+  - npz save and load of that tree (``save_params``, ``load_params``,
+    ``flatten_tree``, ``unflatten_tree``): a file the port saves loads in
+    both packages,
   - ``params_from_flax``: the flattened tree -> the ``state_dict`` of the
-    port's ``models.yolov5.YOLOv5`` (every array used exactly once),
-  - the numpy-only converters of the JAX package, kept with their output
-    format (the flax tree): ``convert_state_dict`` (ultralytics
-    ``model.N.*`` names) and ``convert_onnx`` with its built-in protobuf
-    wire parser; feed their result through ``flatten_tree`` and
-    ``params_from_flax`` to load it into the port.
+    port's ``models.yolov5.YOLOv5`` (every array used exactly once), and
+    its inverse ``params_to_flax``,
+  - the converters of the JAX package, kept with their output format (the
+    flax tree): ``convert_state_dict`` (ultralytics ``model.N.*`` names),
+    ``convert_onnx`` with its built-in protobuf wire parser and
+    ``convert_torch_checkpoint``; feed their result through
+    ``flatten_tree`` and ``params_from_flax`` to load it into the port.
 """
 
 from __future__ import annotations
@@ -50,6 +52,16 @@ def unflatten_tree(flat: dict[str, np.ndarray]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = value
     return tree
+
+
+def save_params(model_or_state_dict, path: str) -> None:
+    """Write a YOLOv5 (the module or its ``state_dict``) as the npz of the
+    flattened flax tree, the file the JAX package's ``save_params``
+    writes (``np.savez`` adds ``.npz`` where ``path`` lacks it)."""
+    sd = model_or_state_dict
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    np.savez(path, **params_to_flax(sd))
 
 
 def load_params(path: str) -> dict:
@@ -233,6 +245,18 @@ def convert_onnx(onnx_path: str) -> dict:
     return convert_state_dict(sd)
 
 
+def convert_torch_checkpoint(ckpt_path: str) -> dict:
+    """Convert an ultralytics yolov5s torch checkpoint (``.pt``, the model
+    under ``"model"``) or a plain state dict saved by ``torch.save`` to
+    the flax variable tree. The file is unpickled in full (an ultralytics
+    checkpoint holds the model object), so load only files you trust."""
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    model = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    sd_t = model.state_dict() if hasattr(model, "state_dict") else model
+    sd = {k: np.asarray(v.float().numpy()) for k, v in sd_t.items()}
+    return convert_state_dict(sd)
+
+
 def convert_state_dict(sd: dict[str, np.ndarray]) -> dict:
     """Map an ultralytics yolov5s state dict (``model.N.*`` names, torch
     OIHW conv layout) onto this package's Flax module tree."""
@@ -303,3 +327,35 @@ def params_from_flax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             raise KeyError(f"flax parameter {key!r} maps onto {dst!r} twice")
         sd[dst] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     return sd
+
+
+_FLAX_BN_KEYS = {v: k for k, v in _BN_KEYS.items()}
+
+
+def params_to_flax(state_dict: dict) -> dict[str, np.ndarray]:
+    """The inverse of ``params_from_flax``: the ``state_dict`` of
+    ``models.yolov5.YOLOv5`` (on any device, in any float dtype) as the
+    flattened flax tree, float32 numpy arrays: conv kernels OIHW -> HWIO
+    under ``params/<mod>/conv/kernel``, the batch norms' weight and bias
+    under ``params/<mod>/bn/{scale,bias}`` and their running statistics
+    under ``batch_stats/<mod>/bn/{mean,var}``, the detect heads'
+    ``params/detect{i}/{kernel,bias}``. A key of another form raises
+    ``KeyError``."""
+    flat: dict[str, np.ndarray] = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        mod, leaf = parts[:-1], parts[-1]
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            dst, arr = f"params/{'/'.join(mod)}/kernel", arr.transpose(
+                2, 3, 1, 0)                                    # OIHW->HWIO
+        elif leaf == "bias" and len(mod) == 1 and mod[0].startswith(
+                "detect"):
+            dst = f"params/{mod[0]}/bias"
+        elif mod and mod[-1] == "bn" and leaf in _FLAX_BN_KEYS:
+            coll = "params" if leaf in ("weight", "bias") else "batch_stats"
+            dst = f"{coll}/{'/'.join(mod)}/{_FLAX_BN_KEYS[leaf]}"
+        else:
+            raise KeyError(f"cannot map parameter {key!r} to the flax tree")
+        flat[dst] = np.ascontiguousarray(arr)
+    return flat

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import resolve_device
+
 # default anchors (v5s, 640px): per scale [w, h] x 3
 DEFAULT_ANCHORS = (
     ((10, 13), (16, 30), (33, 23)),       # P3/8
@@ -238,3 +240,41 @@ def decode_predictions(heads: Sequence[torch.Tensor], nc: int,
         outs.append(torch.cat([xy, wh, p[..., 4:]],
                               dim=-1).reshape(b, h * w * 3, 5 + nc))
     return torch.cat(outs, dim=1)
+
+
+# flax's lecun_normal: a normal truncated at +-2 standard deviations, scaled
+# by this so that the truncated draw keeps the variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_params(nc: int = 8, input_hw: tuple[int, int] = (640, 640),
+                seed: int = 0, device: str = "cuda") -> YOLOv5:
+    """A YOLOv5 with the JAX package's initialisation (``init_params`` and
+    flax's defaults): every convolution kernel lecun-normal (truncated at
+    +-2 sigma, sigma = sqrt(1 / fan_in) / 0.87962566, fan_in = kh * kw *
+    c_in), the detect biases zero, batch norm scale one and bias zero,
+    running mean zero and variance one. The draw comes from a
+    ``torch.Generator`` seeded with ``seed`` on the CPU, so a seed gives
+    the same weights on every device (not ``jax.random``'s: tests carry
+    the JAX package's initial parameters across with ``params_from_flax``).
+    ``input_hw`` is the JAX signature's; the modules need no input to size
+    their parameters."""
+    del input_hw
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    model = YOLOv5(nc=nc)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                w = m.weight
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                w.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, FrozenBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model.to(dev)

@@ -8,7 +8,9 @@ one per shard, and a parallel module runs the shards that share a device
 as a batch axis of one call (``groups``), the shards of different devices
 one call each, exchanging halos by ``.to(device)``. A mesh whose shards
 all lie on one device (``shared_mesh``, and any mesh on the CPU) is the
-counterpart of the JAX package's virtual 8-device CPU platform.
+counterpart of the JAX package's virtual 8-device CPU platform. A
+``GridMesh`` is the 2-D form (the train step's ``(dp, mdl)`` mesh); its
+slices along an axis are ``DeviceMesh``es.
 """
 
 from __future__ import annotations
@@ -43,6 +45,46 @@ class DeviceMesh:
             else:
                 out.append((dev, i, i + 1))
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """A 2-D mesh: ``devices[i][j]`` is the device of shard (i, j), the
+    axes named ``axis_names`` (the counterpart of a ``jax.sharding.Mesh``
+    over a 2-D device array, such as the train step's ``(dp, mdl)``)."""
+    devices: tuple
+    axis_names: tuple = ("dp", "mdl")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names,
+                        (len(self.devices), len(self.devices[0]))))
+
+    def along(self, axis: str) -> DeviceMesh:
+        """The 1-D mesh of the slices along ``axis``: slice k holds the
+        shards whose index on ``axis`` is k, and lies where they lie; a
+        slice whose shards lie on more than one device raises
+        ``ValueError``."""
+        grid = (self.devices if self.axis_names.index(axis) == 0
+                else tuple(zip(*self.devices)))
+        out = []
+        for k, row in enumerate(grid):
+            devs = {canonical(d) for d in row}
+            if len(devs) != 1:
+                raise ValueError(f"the shards of {axis} slice {k} lie on "
+                                 f"{len(devs)} devices, not one")
+            out.append(devs.pop())
+        return DeviceMesh(tuple(out), axis)
+
+
+def shared_grid(shape: tuple[int, int],
+                device: Union[str, torch.device] = "cuda") -> GridMesh:
+    """A ``(dp, mdl)`` mesh of ``shape`` whose shards all lie on one
+    device."""
+    if min(shape) < 1:
+        raise ValueError(f"a mesh needs at least one shard, not {shape}")
+    dev = canonical(resolve_device(device))
+    return GridMesh(tuple((dev,) * shape[1] for _ in range(shape[0])))
 
 
 def canonical(device) -> torch.device:

@@ -10,7 +10,9 @@ test/20220413_annotation.json.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 
 import numpy as np
 
@@ -175,3 +177,50 @@ def default_annotation(width: int = 960, height: int = 540) -> dict:
             "pt2": [int(width * 0.30), int(height * 0.55)],
         }],
     }
+
+
+def write_annotated_clip(directory: str, width: int = 256, height: int = 144,
+                         fps: float = 25.0) -> str:
+    """Write the annotated clip of the F1 checks into ``directory``: a
+    6.5 s MJPG AVI (``synth.avi``) of 40 stars and noise sigma 3 with one
+    meteor from 2.4 s to 4.4 s, and its ground truth as an MDRF of type
+    ``annotation`` (``anno.json``, the video named relative to it, as
+    ``evaluate`` reads it). Returns the annotation's path."""
+    from .utils import frame2ts
+    pt1 = (int(width * 0.45), int(height * 0.25))
+    pt2 = (int(width * 0.30), int(height * 0.55))
+    frames = generate_meteor_video(
+        width=width, height=height, fps=fps, duration_sec=6.5,
+        meteors=[SynthMeteor(start_sec=2.4, end_sec=4.4, pt1=pt1, pt2=pt2)],
+        n_stars=40, noise_sigma=3.0)
+    os.makedirs(directory, exist_ok=True)
+    write_video(frames, os.path.join(directory, "synth.avi"), fps=fps)
+    sf, ef = int(2.4 * fps), int(4.4 * fps)
+    target = {
+        "start_frame": sf, "start_time": frame2ts(sf, fps),
+        "end_time": frame2ts(ef, fps), "last_activate_frame": ef,
+        "last_activate_time": frame2ts(ef, fps), "duration": ef - sf + 1,
+        "speed": 1.0, "dist": 50.0, "fix_dist": 20.0, "fix_speed": 10.0,
+        "fix_motion_duration": 2.0, "fix_duration": 2.0, "num_pts": 2,
+        "category": "METEOR", "pt1": list(pt1), "pt2": list(pt2),
+        "drct_loss": 0.0, "score": 1.0, "real_dist": 50.0,
+    }
+    anno = {
+        "version": "anno", "basic_info": {
+            "loader": "none", "video": "synth.avi", "mask": None,
+            "start_time": 0, "end_time": int(6500 / fps * 1000),
+            "resolution": [width, height],
+            "runtime_resolution": [width, height], "exp_time": 1 / fps,
+            "total_frames": int(6.5 * fps), "fps": fps,
+        },
+        "config": None, "type": "annotation", "anno_size": [width, height],
+        "results": [{
+            "start_time": frame2ts(sf, fps), "end_time": frame2ts(ef, fps),
+            "video_size": [width, height], "target": [target],
+            "start_frame": sf, "end_frame": ef,
+        }],
+    }
+    path = os.path.join(directory, "anno.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(anno, f)
+    return path
