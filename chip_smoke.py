@@ -128,6 +128,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    --metric`` on the annotated 256x144 clip on the card and on the CPU:
    recall 1.0 and the same summary.
 
+18. Frozen build and trace: (a) ``make_package_zipapp.py --package
+   metdetpy_tpu_torch --tools MetDetPy`` into a temporary directory, the
+   ``.pyz`` run on the 200-frame 960x540 MJPG AVI of phase 15 (m3det_normal
+   as shipped, recheck on, real-time) with a fresh ``HOME`` from a working
+   directory outside the repo on the default device: its MDRF ``results``
+   equal the in-tree main entry's (``metdetpy_tpu_torch.__main__.main``,
+   in-process, all four kernels launched), the fresh cache holds the four
+   kernel libraries under the in-tree build's hashed names, cold and warm
+   seconds, and a third run with ``METDETPY_TPU_TRACE_DIR`` set whose
+   trace holds a device event for each launch of the four kernels. (b)
+   ``detect_video`` on the same clip untraced and traced: records and
+   launches equal, frames/s of both, the trace parses and holds a device
+   event for each launch of each kernel, their summed device ms beside
+   phase 2's per-launch ms times the run's launches.
+
 Phase 2 also times window_diff over 8 streams in one launch (frames
 [8, 64, 540, 960], the history a view of the block before), exact against
 its plain version; the ragged cases include window_diff's stream axis.
@@ -149,6 +164,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1979,6 +1995,179 @@ def phase_train(card: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _trace_kernels(trace_dir: str, launches: dict) -> dict:
+    """{kernel: (device events, summed device ms)} of the one Chrome trace
+    in ``trace_dir``: events of category ``kernel`` whose name holds the
+    kernel's ``__global__`` name (``<name>_kernel``); fails unless each
+    kernel has as many events as the traced run's ``launches``."""
+    from metdetpy_tpu_torch.ops import kernels as K
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"trace: {len(files)} trace files in {trace_dir}, expected 1")
+    with open(os.path.join(trace_dir, files[0]), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    found = {name: [0, 0.0] for name in K.SOURCES}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for name in K.SOURCES:
+            if f"{name}_kernel" in e.get("name", ""):
+                found[name][0] += 1
+                found[name][1] += e["dur"] / 1e3
+    events_n = {k: n for k, (n, _) in found.items()}
+    if events_n != launches:
+        n_kernels = sum(e.get("cat") == "kernel" for e in events)
+        fail(f"trace: device events {events_n} against launches {launches} "
+             f"({n_kernels} kernel events, {len(events)} events)")
+    return {k: tuple(v) for k, v in found.items()}
+
+
+def phase_frozen_and_trace(card: str, rows: dict) -> dict:
+    """(a) The frozen main entry on the card against the in-tree one, the
+    kernels built from the archive's sources into an empty cache; (b)
+    detect_video traced against untraced. Returns the launch counts of the
+    in-tree main entry's run."""
+    from metdetpy_tpu_torch.__main__ import main as cli_main
+    from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.ops import kernels as K
+    from metdetpy_tpu_torch.structs import MainDetectCfg
+    from metdetpy_tpu_torch.utils import relative2abs_path
+    video = os.path.join(FILES, "temporal.avi")
+    if not os.path.isfile(video):
+        fail(f"frozen: the clip of phase 15 is missing: {video}")
+    args = [video, "--mode", "backend", "--exp-time", "real-time"]
+    t_phase = time.perf_counter()
+
+    # (a) the in-tree main entry, then the frozen one in a fresh HOME
+    tree_out = os.path.join(FILES, "frozen_tree.json")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main([*args, "--save-path", tree_out])
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    _require_launches("the in-tree main entry", launches)
+    with open(tree_out, encoding="utf-8") as f:
+        tree = json.load(f)["results"]
+    if not tree:
+        fail("frozen: the in-tree main entry found nothing in the clip")
+    want_libs = sorted(os.path.basename(K._lib_path(src))
+                       for src in {s for s, _, _ in K.SOURCES.values()})
+    with tempfile.TemporaryDirectory(prefix="metdetpy_frozen_") as tmp:
+        dist, home, work = (os.path.join(tmp, d)
+                            for d in ("dist", "home", "work"))
+        os.makedirs(home)
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        build = subprocess.run(
+            [sys.executable, os.path.join(REPO, "make_package_zipapp.py"),
+             "--package", "metdetpy_tpu_torch", "--tools", "MetDetPy",
+             "--out", dist], capture_output=True, text=True, timeout=300)
+        if build.returncode != 0:
+            fail(f"frozen: make_package_zipapp.py exited "
+                 f"{build.returncode}: {build.stderr[-2000:]}")
+        pyz = os.path.join(dist, "MetDetPy.pyz")
+        pack_s = time.perf_counter() - t0
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "METDET_RESOURCE_DIR",
+                            "METDETPY_TPU_TRACE_DIR")}
+        env["HOME"] = home
+        runs = {}
+        for run in ("cold", "warm", "traced"):
+            run_env = dict(env)
+            if run == "traced":
+                run_env["METDETPY_TPU_TRACE_DIR"] = os.path.join(tmp,
+                                                                 "trace")
+            out = os.path.join(work, f"{run}.json")
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, pyz, *args, "--save-path", out],
+                cwd=work, env=run_env, capture_output=True, text=True,
+                timeout=600)
+            runs[run] = time.perf_counter() - t0
+            if res.returncode != 0:
+                fail(f"frozen: the {run} run of {pyz} exited "
+                     f"{res.returncode}: {res.stderr[-3000:]}")
+            with open(out, encoding="utf-8") as f:
+                got = json.load(f)["results"]
+            if got != tree:
+                fail(f"frozen: the {run} run's results {got} differ from "
+                     f"the in-tree main entry's {tree}")
+            if run == "cold":
+                cache = os.path.join(home, ".cache", "metdetpy_tpu_torch")
+                bundles = os.listdir(cache)
+                build_dir = os.path.join(cache, *bundles[:1],
+                                         "metdetpy_tpu_torch", "csrc",
+                                         "build")
+                libs = sorted(f for f in os.listdir(build_dir)
+                              if f.endswith(".so")) if len(
+                                  bundles) == 1 else []
+                if libs != want_libs:
+                    fail(f"frozen: the fresh cache holds {bundles} with "
+                         f"kernel libraries {libs}, expected {want_libs}")
+        # the frozen run launches what the in-tree run launched
+        frozen_trace = _trace_kernels(os.path.join(tmp, "trace"), launches)
+    print(f"frozen (a) on {card}: MetDetPy.pyz built in {pack_s:.1f} s; "
+          f"a 200-frame {W}x{H} MJPG AVI (m3det_normal as shipped, recheck "
+          f"on): cold start {runs['cold']:.1f} s (extraction, nvcc of 4 "
+          f"kernels into the empty cache, run), warm {runs['warm']:.1f} s, "
+          f"traced {runs['traced']:.1f} s; the in-tree main entry "
+          f"in-process {tree_s:.1f} s; {len(tree)} record(s), equal in all "
+          f"three runs; the cache's libraries {want_libs} are the in-tree "
+          f"build's names; the frozen trace's kernel events "
+          f"{ {k: n for k, (n, _) in frozen_trace.items()} }; in-tree "
+          f"launches {launches}", flush=True)
+
+    # (b) detect_video untraced, then traced
+    cfg = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json"))
+    cfg.loader.exp_time = "real-time"
+    n_frames = 200
+    walls, results, run_launches = {}, {}, {}
+    trace_dir = os.path.join(FILES, "trace")
+    for run, env in (("untraced", {}),
+                     ("traced", {"METDETPY_TPU_TRACE_DIR": trace_dir})):
+        with env_set(env):
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            mdrf = detect_video(video, None, cfg, work_mode="backend",
+                                device="cuda")
+            torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t0
+            run_launches[run] = dict(K.LAUNCHES)
+        _require_launches(f"detect_video {run}", run_launches[run])
+        results[run] = _dicts(mdrf)
+    if results["traced"] != results["untraced"] or not results["traced"]:
+        fail(f"trace: the traced run's records {results['traced']} differ "
+             f"from the untraced run's {results['untraced']}")
+    if run_launches["traced"] != run_launches["untraced"]:
+        fail(f"trace: launches {run_launches['traced']} traced against "
+             f"{run_launches['untraced']} untraced")
+    found = _trace_kernels(trace_dir, run_launches["traced"])
+    shutil.rmtree(trace_dir)
+    from metdetpy_tpu_torch.profiling import last_trace_stats as cost
+    per_kernel = []
+    for name, (n_ev, ms) in found.items():
+        n = run_launches["traced"][name]
+        rows[name]["trace_events"] = n_ev
+        rows[name]["trace_device_ms"] = ms
+        per_kernel.append(
+            f"{name} {n_ev} events / {n} launches, {ms:.3f} ms in the trace "
+            f"against {rows[name]['ms'] * n:.3f} ms warm and "
+            f"{rows[name]['cold_ms'] * n:.3f} ms cold (phase 2 per launch "
+            f"x launches)")
+    print(f"trace (b) on {card}: detect_video on the 200-frame {W}x{H} "
+          f"clip untraced {n_frames / walls['untraced']:.2f} frames/s "
+          f"({walls['untraced']:.3f} s), traced "
+          f"{n_frames / walls['traced']:.2f} frames/s ({walls['traced']:.3f}"
+          f" s: the profiler's start {cost['start_s']:.3f} s, stop "
+          f"{cost['stop_s']:.3f} s, export {cost['export_s']:.3f} s of "
+          f"{cost['bytes'] / 2**20:.1f} MiB); records equal; "
+          f"{'; '.join(per_kernel)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
@@ -2021,11 +2210,13 @@ def main() -> None:
     del clip
     phase_data_parallel(card)
     phase_train(card)
+    frozen_launches = phase_frozen_and_trace(card, rows)
     shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["multistream_launches"] = ms_launches[name]
         row["temporal_launches"] = temporal_launches[name]
+        row["frozen_entry_launches"] = frozen_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ from .detectors.base import BaseDetector
 from .detectors.m3det import DiffAreaGuidingDetecor, LineDetector, M3Detector
 from .io.videoloader import BlockVideoLoader
 from .log import get_default_logger, set_default_logger
-from .profiling import StageTimer
+from .profiling import StageTimer, maybe_torch_trace
 from .structs import MDRF, ClipCfg, MainDetectCfg, RuntimeParams
 from .utils import (LIVE_MODE_SPEED_CTRL_CONST, VERSION, frame2time, frame2ts,
                     get_clip_config_path, get_num_class)
@@ -56,7 +56,10 @@ def detect_video(video_name: str, mask_name: Optional[str],
     the recheck model's config as in the JAX package (it names a compute
     provider of the reference's runtime and selects nothing here). A
     recheck model that cannot be built (a missing weight file) ends the
-    call with that exception.
+    call with that exception. With ``METDETPY_TPU_TRACE_DIR`` set, the
+    loop from the loader's start on runs under ``torch.profiler`` and
+    writes one Chrome-trace file into that directory
+    (``profiling.maybe_torch_trace``).
     """
     dev = resolve_device(device)
     set_default_logger(debug_mode, work_mode)
@@ -189,18 +192,20 @@ def detect_video(video_name: str, mask_name: Optional[str],
                 start_frame=start_frame + resume_idx * rt_param.exp_frame)
             logger.info(f"Resumed from {checkpoint_path} at merged frame "
                         f"{resume_idx}.")
-        video_loader.start()
-        if block_loader:
-            recovered_blocks = _run_block_loop(
-                video_loader, detector, collector, rt_param, start_frame,
-                work_mode, live_mode, visual_mode, visual_manager, logger,
-                t0, timer=timer, resume_idx=resume_idx,
-                checkpoint_path=checkpoint_path,
-                checkpoint_interval_sec=checkpoint_interval_sec)
-        else:
-            _run_frame_loop(video_loader, detector, collector, rt_param,
-                            start_frame, end_frame, work_mode, live_mode,
-                            visual_mode, visual_manager, logger, t0)
+        with maybe_torch_trace(dev):
+            video_loader.start()
+            if block_loader:
+                recovered_blocks = _run_block_loop(
+                    video_loader, detector, collector, rt_param,
+                    start_frame, work_mode, live_mode, visual_mode,
+                    visual_manager, logger, t0, timer=timer,
+                    resume_idx=resume_idx, checkpoint_path=checkpoint_path,
+                    checkpoint_interval_sec=checkpoint_interval_sec)
+            else:
+                _run_frame_loop(video_loader, detector, collector,
+                                rt_param, start_frame, end_frame, work_mode,
+                                live_mode, visual_mode, visual_manager,
+                                logger, t0)
         if not visual_manager.manual_stop:
             logger.info("VideoLoader-stop detected.")
     except Exception as e:

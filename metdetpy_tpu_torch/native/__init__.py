@@ -1,6 +1,7 @@
 """ctypes bindings for the native host runtime (libmetring.so).
 
-Builds on demand with the bundled Makefile; every entry point has a
+Builds on demand with the bundled Makefile (beside it, or into the user's
+cache where the package is read-only); every entry point has a
 numpy/cv2 fallback so the package works without a compiler.
 """
 
@@ -13,16 +14,19 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import build_root
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_HERE, "libmetring.so")
+_LIB_PATH = os.path.join(build_root(_HERE), "libmetring.so")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
 def _build() -> bool:
     try:
-        ret = subprocess.run(["make", "-C", _HERE], capture_output=True,
-                             timeout=120)
+        os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+        ret = subprocess.run(["make", "-C", _HERE, f"TARGET={_LIB_PATH}"],
+                             capture_output=True, timeout=120)
         return ret.returncode == 0
     except Exception:
         return False

@@ -12,7 +12,8 @@ Counterpart of ``metdetpy_tpu/ops/pallas_kernels.py``. Each wrapper:
 The kernels (``csrc/*.cu``) are compiled for ``sm_90a`` at first use, one
 ``nvcc`` process per source, all started together, into shared libraries
 with a plain C interface under ``csrc/build/`` (keyed by a hash of the
-source and flags) and bound with ``ctypes``. Each C entry point launches
+source and flags; ``~/.cache/metdetpy_tpu_torch/csrc/build/`` where the
+package is read-only) and bound with ``ctypes``. Each C entry point launches
 on the caller's stream and returns ``cudaGetLastError()``. ``variant``
 swaps in a build of one source with extra ``-D`` flags, for timing a
 kernel at other sizes than the package builds it with.
@@ -30,12 +31,13 @@ import threading
 
 import torch
 
+from ..utils import build_root
 from . import filters, windows
 from .f32 import fma_f32, trig_tables
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-BUILD_DIR = os.path.join(_CSRC, "build")
+BUILD_DIR = os.path.join(build_root(_CSRC), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

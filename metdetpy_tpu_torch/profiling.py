@@ -1,14 +1,21 @@
-"""Pipeline stage timers (host clock).
+"""Pipeline stage timers (host clock) and the profiler trace of a run.
 
 Named stage accumulators for the block loop (decode wait, dispatch,
-collect, collector) and a frames/sec summary; a copy of the JAX package's
-``StageTimer``.
+collect, collector) and a frames/sec summary, a copy of the JAX package's
+``StageTimer``; and ``maybe_torch_trace``, the counterpart of its
+``maybe_jax_trace``: a ``torch.profiler`` trace of the detection loop when
+``METDETPY_TPU_TRACE_DIR`` is set.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
 import time
+from typing import Optional
+
+import torch
 
 
 class StageTimer:
@@ -49,3 +56,70 @@ class StageTimer:
         s = self.summary()
         logger.debug("Pipeline stages: " + ", ".join(
             f"{k}={v}" for k, v in s.items()))
+
+
+def _new_trace_path(trace_dir: str) -> str:
+    """A file of TensorBoard's profile layout
+    (``<host>_<pid>.<stamp>.pt.trace.json``) that no earlier run wrote,
+    reserved by creating it empty."""
+    worker = f"{socket.gethostname()}_{os.getpid()}"
+    stamp = time.time_ns()
+    while True:
+        path = os.path.join(trace_dir, f"{worker}.{stamp}.pt.trace.json")
+        try:
+            os.close(os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+            return path
+        except FileExistsError:
+            stamp += 1
+
+
+_WARMUP_KERNELS = 16
+
+# the last trace's file, size and host seconds of the profiler's start,
+# stop and export: what tracing costs a run
+last_trace_stats: dict = {}
+
+
+@contextlib.contextmanager
+def maybe_torch_trace(device: torch.device):
+    """``torch.profiler`` trace of the block when METDETPY_TPU_TRACE_DIR is
+    set: CPU activity, and CUDA activity where ``device`` is a card. On exit
+    (also on an exception) it writes one Chrome-trace JSON file into that
+    directory under a new name. Without the variable no profiler is
+    created. Errors of the profiler propagate."""
+    trace_dir: Optional[str] = os.environ.get("METDETPY_TPU_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    last_trace_stats.clear()
+    t0 = time.perf_counter()
+    # a warm-up step before the recorded one: in a process that has
+    # profiled before, CUPTI may lose the first kernel records after it is
+    # enabled (3 of them, seen on an H100 with torch 2.11); a few kernels
+    # in the warm-up, whose records are discarded, take that loss
+    prof = torch.profiler.profile(
+        activities=activities,
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1))
+    prof.start()
+    if device.type == "cuda":
+        x = torch.zeros(1, device=device)
+        for _ in range(_WARMUP_KERNELS):
+            x.add_(1)
+        torch.cuda.synchronize(device)
+    prof.step()
+    t1 = time.perf_counter()
+    try:
+        yield
+    finally:
+        t2 = time.perf_counter()
+        prof.stop()
+        t3 = time.perf_counter()
+        path = _new_trace_path(trace_dir)
+        prof.export_chrome_trace(path)
+        last_trace_stats.update(
+            path=path, bytes=os.path.getsize(path), start_s=t1 - t0,
+            stop_s=t3 - t2, export_s=time.perf_counter() - t3)

@@ -54,6 +54,16 @@ def get_resource_dir() -> str:
     return path.dirname(path.dirname(path.abspath(__file__)))
 
 
+def build_root(src_dir: str) -> str:
+    """Where a build of the sources in ``src_dir`` writes: ``src_dir``
+    itself, or, where that is read-only (a frozen bundle installed in a
+    system directory), ``~/.cache/metdetpy_tpu_torch/<its name>``."""
+    if os.access(src_dir, os.W_OK):
+        return src_dir
+    return path.join(path.expanduser("~"), ".cache", "metdetpy_tpu_torch",
+                     path.basename(src_dir))
+
+
 def relative2abs_path(rpath: str) -> str:
     if rpath.startswith("./"):
         rpath = rpath[2:]
