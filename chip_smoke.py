@@ -128,7 +128,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    --metric`` on the annotated 256x144 clip on the card and on the CPU:
    recall 1.0 and the same summary.
 
-18. Frozen build and trace: (a) ``make_package_zipapp.py --package
+18. Bench: ``python -m metdetpy_tpu_torch.bench``'s entry (``main``)
+   in-process for every mode at reduced depth through the mode's own
+   arguments and knobs (1-6 s clips, one pass; the default mode at full
+   width, a 1920x1080 clip detected at 960x540, with the launch counts set
+   to 0 just before it and read just after): exactly one JSON line each,
+   with the JAX harness's keys and the card's name; ``meteor_found`` true
+   where a mode reports it, a meteor in every stream of the sharded modes
+   and lines in every feed of the multistream mode; the active-sky worst
+   case dense (``min_npix`` > 1024, ``overflow_rate`` <= 0.01). Before
+   that, a quiet 960x540 block and two active-sky blocks
+   (``bench.worstcase_frames``) through ``M3Detector.process_block_async``
+   on the card and on the CPU: the packed buffers equal.
+19. Frozen build and trace: (a) ``make_package_zipapp.py --package
    metdetpy_tpu_torch --tools MetDetPy`` into a temporary directory, the
    ``.pyz`` run on the 200-frame 960x540 MJPG AVI of phase 15 (m3det_normal
    as shipped, recheck on, real-time) with a fresh ``HOME`` from a working
@@ -1995,7 +2007,166 @@ def phase_train(card: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def _trace_kernels(trace_dir: str, launches: dict) -> dict:
+# the JAX harness's keys of each mode's JSON line, and "device"
+_BENCH_COMMON = {"metric", "value", "unit", "vs_baseline", "device"}
+_BENCH_PASSES = {"protocol", "value_best", "passes_fps"}
+_BENCH_SHARDED = _BENCH_COMMON | {"streams_with_meteor", "n_streams",
+                                  "backend"}
+BENCH_KEYS = {
+    None: _BENCH_COMMON | _BENCH_PASSES | {
+        "vs_baseline_best", "device_only_fps", "device_only_vs_baseline",
+        "device_hbm", "device_worstcase_fps", "device_worstcase_occupancy",
+        "device_with_readback_fps", "readback_mbps", "host_memcpy_gbps",
+        "stages"},
+    "probe": {"metric", "h2d_mbps", "d2h_mbps", "probe_wall_s", "device"},
+    "multistream": _BENCH_COMMON | _BENCH_PASSES | {
+        "input_resolution", "analysis_resolution",
+        "streams_with_meteor_lines", "n_streams", "stages",
+        "stages_all_passes"},
+    "multistream_sharded": _BENCH_SHARDED,
+    "dldet_sharded": _BENCH_SHARDED,
+    "yolo": _BENCH_COMMON | {"batch"},
+    "dldet": _BENCH_COMMON | _BENCH_PASSES | {"meteor_found", "detector",
+                                              "note", "stages"},
+    "high_mask": _BENCH_COMMON | _BENCH_PASSES | {"meteor_found", "config"},
+    "photo": _BENCH_COMMON | {"protocol", "value_best", "n_images",
+                              "result_records"},
+    "denoise": _BENCH_COMMON | {
+        "protocol", "value_best", "t_max_export_s", "t_mfnr_export_s",
+        "t_max_passes_s", "t_mfnr_passes_s", "device_pixel_math", "stages",
+        "clip"},
+    "recheck": _BENCH_COMMON | _BENCH_PASSES | {
+        "recheck_off_fps_best", "recheck_off_fps_median",
+        "recheck_off_passes_fps", "recheck_overhead_pct_best",
+        "recheck_overhead_pct_median", "meteor_found", "n_meteors",
+        "n_rechecked_targets", "n_demoted_targets", "target_categories",
+        "clip_events", "note"},
+}
+# (mode, environment, arguments of the mode's function): reduced depth
+BENCH_RUNS = [
+    (None, {"BENCH_SECONDS": "4", "BENCH_PASSES": "1"},
+     {"n_blocks": (16, 16, 8)}),
+    ("probe", {}, {}),
+    ("multistream", {"BENCH_STREAMS": "4", "BENCH_SECONDS": "6",
+                     "BENCH_PASSES": "1"}, {}),
+    ("multistream_sharded", {"BENCH_SECONDS": "6"}, {}),
+    ("dldet_sharded", {}, {}),
+    ("yolo", {}, {"counts": (2, 6)}),
+    ("dldet", {"BENCH_SECONDS": "5", "BENCH_PASSES": "1"}, {}),
+    ("high_mask", {"BENCH_SECONDS": "5", "BENCH_PASSES": "1"}, {}),
+    ("photo", {"BENCH_PHOTO_IMGS": "8", "BENCH_PASSES": "1"}, {}),
+    ("denoise", {"BENCH_PASSES": "1"}, {}),
+    ("recheck", {"BENCH_SECONDS": "5", "BENCH_PASSES": "1"}, {}),
+]
+
+
+def _bench_line(mode, env: dict, kwargs: dict) -> dict:
+    """``python -m metdetpy_tpu_torch.bench``'s entry (``main``) in-process
+    with BENCH_MODE and ``env`` set, the mode's function given ``kwargs``:
+    fails unless stdout got exactly one JSON line; returns it."""
+    import functools
+    import io
+    from metdetpy_tpu_torch import bench
+    fn = bench.MODES[mode]
+    bench.MODES[mode] = functools.partial(fn, **kwargs)
+    os.environ.pop("BENCH_MODE", None)
+    out = io.StringIO()
+    try:
+        with env_set({**env, **({"BENCH_MODE": mode} if mode else {})}), \
+                contextlib.redirect_stdout(out):
+            bench.main([])
+    finally:
+        bench.MODES[mode] = fn
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1:
+        fail(f"bench {mode}: {len(lines)} lines on stdout, expected one "
+             f"JSON line: {lines[:5]}")
+    return json.loads(lines[0])
+
+
+def _bench_blocks_card_vs_cpu() -> dict:
+    """A quiet sky block (the default mode's clip at its half size) and
+    two active-sky blocks (``bench.worstcase_frames``, the second dense in
+    steady state) through ``M3Detector.process_block_async`` on the card
+    and on the CPU: the packed buffers equal. Returns the occupancy of the
+    card's dense block."""
+    from metdetpy_tpu_torch import bench
+    quiet = bench._meteor_clip(W, H, T_BLOCK / FPS)
+    worst = bench.worstcase_frames(2 * T_BLOCK)
+    cases = (("quiet", bench._preset("m3det_normal"), quiet),
+             ("worst case", bench.worstcase_cfg(), worst))
+    occ = None
+    for name, cfg, frames in cases:
+        dets = {dev: bench._m3_detector(cfg, H, W, dev)
+                for dev in ("cuda", "cpu")}
+        for b in range(frames.shape[0] // T_BLOCK):
+            block = frames[b * T_BLOCK:(b + 1) * T_BLOCK]
+            bufs = {dev: det.process_block_async(block)[0].cpu().numpy()
+                    for dev, det in dets.items()}
+            if not np.array_equal(bufs["cuda"], bufs["cpu"]):
+                n_bad = int((bufs["cuda"] != bufs["cpu"]).sum())
+                fail(f"bench: the {name} block {b}'s packed buffer on the "
+                     f"card differs from the CPU's in {n_bad} values")
+        if name == "worst case":
+            det = dets["cuda"]
+            occ = bench.occupancy(bufs["cuda"], det.max_peaks,
+                                  det.max_points)
+    return occ
+
+
+def phase_bench(card: str) -> dict:
+    """Every mode of ``python -m metdetpy_tpu_torch.bench`` on the card at
+    reduced depth (the default mode at full width); returns the launch
+    counts of the default mode's run."""
+    from metdetpy_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    occ = _bench_blocks_card_vs_cpu()
+    if not (occ["min_npix"] > 1024 and occ["overflow_rate"] <= 0.01):
+        fail(f"bench: the dense block on the card is not dense: {occ}")
+    print(f"bench on {card}: a quiet and two active-sky 64-frame {W}x{H} "
+          f"blocks through M3Detector.process_block_async, packed buffers "
+          f"on the card equal the CPU's; dense block occupancy {occ} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches = None
+    for mode, env, kwargs in BENCH_RUNS:
+        t0 = time.perf_counter()
+        if mode is None:
+            K.reset_launch_counts()
+        rec = _bench_line(mode, env, kwargs)
+        if mode is None:
+            launches = dict(K.LAUNCHES)
+            _require_launches("bench default mode", launches)
+        if set(rec) != BENCH_KEYS[mode]:
+            fail(f"bench {mode}: keys {sorted(rec)}, expected "
+                 f"{sorted(BENCH_KEYS[mode])}")
+        if not (isinstance(rec["device"], dict)
+                and rec["device"]["name"] == torch.cuda.get_device_name(0)):
+            fail(f"bench {mode}: device {rec['device']}")
+        if rec.get("meteor_found") is False:
+            fail(f"bench {mode}: no METEOR found: {rec}")
+        if "streams_with_meteor" in rec and (
+                rec["streams_with_meteor"] != rec["n_streams"]):
+            fail(f"bench {mode}: meteors in {rec['streams_with_meteor']} "
+                 f"of {rec['n_streams']} streams")
+        if mode == "multistream" and (
+                rec["streams_with_meteor_lines"] != rec["n_streams"]):
+            fail(f"bench multistream: meteor lines in "
+                 f"{rec['streams_with_meteor_lines']} of "
+                 f"{rec['n_streams']} streams")
+        if mode is None:
+            occ = rec["device_worstcase_occupancy"]
+            if not (occ["min_npix"] > 1024 and occ["overflow_rate"] <= 0.01):
+                fail(f"bench: the worst case is not dense: {occ}")
+        print(f"bench {mode or 'default'} ({env}, {kwargs}) on {card}, "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(rec)}",
+              flush=True)
+    print(f"bench: default mode launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _trace_kernels(what: str, trace_dir: str, launches: dict) -> dict:
     """{kernel: (device events, summed device ms)} of the one Chrome trace
     in ``trace_dir``: events of category ``kernel`` whose name holds the
     kernel's ``__global__`` name (``<name>_kernel``); fails unless each
@@ -2003,7 +2174,8 @@ def _trace_kernels(trace_dir: str, launches: dict) -> dict:
     from metdetpy_tpu_torch.ops import kernels as K
     files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
     if len(files) != 1:
-        fail(f"trace: {len(files)} trace files in {trace_dir}, expected 1")
+        fail(f"trace of {what}: {len(files)} trace files in {trace_dir}, "
+             f"expected 1")
     with open(os.path.join(trace_dir, files[0]), encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
     found = {name: [0, 0.0] for name in K.SOURCES}
@@ -2017,8 +2189,8 @@ def _trace_kernels(trace_dir: str, launches: dict) -> dict:
     events_n = {k: n for k, (n, _) in found.items()}
     if events_n != launches:
         n_kernels = sum(e.get("cat") == "kernel" for e in events)
-        fail(f"trace: device events {events_n} against launches {launches} "
-             f"({n_kernels} kernel events, {len(events)} events)")
+        fail(f"trace of {what}: device events {events_n} against launches "
+             f"{launches} ({n_kernels} kernel events, {len(events)} events)")
     return {k: tuple(v) for k, v in found.items()}
 
 
@@ -2106,7 +2278,8 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
                     fail(f"frozen: the fresh cache holds {bundles} with "
                          f"kernel libraries {libs}, expected {want_libs}")
         # the frozen run launches what the in-tree run launched
-        frozen_trace = _trace_kernels(os.path.join(tmp, "trace"), launches)
+        frozen_trace = _trace_kernels("the frozen traced run",
+                                      os.path.join(tmp, "trace"), launches)
     print(f"frozen (a) on {card}: MetDetPy.pyz built in {pack_s:.1f} s; "
           f"a 200-frame {W}x{H} MJPG AVI (m3det_normal as shipped, recheck "
           f"on): cold start {runs['cold']:.1f} s (extraction, nvcc of 4 "
@@ -2143,7 +2316,8 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
     if run_launches["traced"] != run_launches["untraced"]:
         fail(f"trace: launches {run_launches['traced']} traced against "
              f"{run_launches['untraced']} untraced")
-    found = _trace_kernels(trace_dir, run_launches["traced"])
+    found = _trace_kernels("detect_video", trace_dir,
+                           run_launches["traced"])
     shutil.rmtree(trace_dir)
     from metdetpy_tpu_torch.profiling import last_trace_stats as cost
     per_kernel = []
@@ -2210,12 +2384,14 @@ def main() -> None:
     del clip
     phase_data_parallel(card)
     phase_train(card)
+    bench_launches = phase_bench(card)
     frozen_launches = phase_frozen_and_trace(card, rows)
     shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["multistream_launches"] = ms_launches[name]
         row["temporal_launches"] = temporal_launches[name]
+        row["bench_launches"] = bench_launches[name]
         row["frozen_entry_launches"] = frozen_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

@@ -11,9 +11,10 @@ setuptools.
 (default ``dist/metdetpy-tpu-torch``): its package without build output
 (the kernels compile from its CUDA sources at first use; into the user's
 cache where the bundle is read-only), the data trees, and launchers
-``MetDetPy``, ``MetDetPhoto``, ``ClipToolkit``, ``evaluate`` and ``train``
-that run ``python3 -m metdetpy_tpu_torch[.photo|.clip|.evaluate|.train]``
-with the bundle first on the path.
+``MetDetPy``, ``MetDetPhoto``, ``ClipToolkit``, ``evaluate``, ``train`` and
+``bench`` that run ``python3 -m
+metdetpy_tpu_torch[.photo|.clip|.evaluate|.train|.bench]`` with the bundle
+first on the path.
 """
 
 import argparse

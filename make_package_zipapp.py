@@ -13,8 +13,8 @@ Usage: python make_package_zipapp.py [--out dist_pyz] [--tools ...]
 
 ``--package metdetpy_tpu_torch`` freezes the PyTorch/CUDA port's entry
 points instead (``MetDetPy``, ``MetDetPhoto``, ``ClipToolkit``,
-``evaluate``, ``train``: ``python -m metdetpy_tpu_torch`` and its
-``.photo``, ``.clip``, ``.evaluate``, ``.train``) into
+``evaluate``, ``train``, ``bench``: ``python -m metdetpy_tpu_torch`` and
+its ``.photo``, ``.clip``, ``.evaluate``, ``.train``, ``.bench``) into
 ``dist_pyz/metdetpy_tpu_torch/``. Their archives hold the port's package
 (its CUDA sources, no build output) and the data trees, nothing of
 ``metdetpy_tpu``; on first run the launcher extracts both into
@@ -37,7 +37,7 @@ PORT = "metdetpy_tpu_torch"
 # the port's tools: launcher name -> module run as __main__
 PORT_TOOLS = {"MetDetPy": PORT, "MetDetPhoto": f"{PORT}.photo",
               "ClipToolkit": f"{PORT}.clip", "evaluate": f"{PORT}.evaluate",
-              "train": f"{PORT}.train"}
+              "train": f"{PORT}.train", "bench": f"{PORT}.bench"}
 # build outputs (the kernels' csrc/build/, native/libmetring.so) stay out:
 # a frozen port compiles them from its own sources at first use
 PORT_IGNORE = shutil.ignore_patterns("__pycache__", "*.pyc", "*.o", "*.so",

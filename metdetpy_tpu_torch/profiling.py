@@ -73,7 +73,17 @@ def _new_trace_path(trace_dir: str) -> str:
             stamp += 1
 
 
-_WARMUP_KERNELS = 16
+_PAD_KERNELS = 64
+
+
+def _pad_kernels(device: torch.device) -> None:
+    """A few small kernels on ``device``, waited for (none on the CPU)."""
+    if device.type != "cuda":
+        return
+    x = torch.zeros(1, device=device)
+    for _ in range(_PAD_KERNELS):
+        x.add_(1)
+    torch.cuda.synchronize(device)
 
 # the last trace's file, size and host seconds of the profiler's start,
 # stop and export: what tracing costs a run
@@ -97,20 +107,18 @@ def maybe_torch_trace(device: torch.device):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     last_trace_stats.clear()
     t0 = time.perf_counter()
-    # a warm-up step before the recorded one: in a process that has
-    # profiled before, CUPTI may lose the first kernel records after it is
-    # enabled (3 of them, seen on an H100 with torch 2.11); a few kernels
-    # in the warm-up, whose records are discarded, take that loss
+    # CUPTI may lose the first kernel records after it is enabled (2 to 9
+    # of them, seen on an H100 with torch 2.11), once also the first of
+    # the recorded step: a warm-up step with small kernels, whose records
+    # are discarded, and as many again at the head of the recorded step
+    # take that loss
     prof = torch.profiler.profile(
         activities=activities,
         schedule=torch.profiler.schedule(wait=0, warmup=1, active=1))
     prof.start()
-    if device.type == "cuda":
-        x = torch.zeros(1, device=device)
-        for _ in range(_WARMUP_KERNELS):
-            x.add_(1)
-        torch.cuda.synchronize(device)
+    _pad_kernels(device)
     prof.step()
+    _pad_kernels(device)
     t1 = time.perf_counter()
     try:
         yield

@@ -1,7 +1,7 @@
 """Frozen builds of the PyTorch port on the CPU.
 
 ``make_package_zipapp.py --package metdetpy_tpu_torch`` freezes the port's
-five entry points into ``.pyz`` archives and ``make_package.py --package
+six entry points into ``.pyz`` archives and ``make_package.py --package
 metdetpy_tpu_torch`` into a directory bundle with launchers. Both hold the
 port's package and the data trees, nothing of the JAX package and no
 build output; run from either with a fresh ``HOME``, the main entry gives
@@ -30,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "metdetpy_tpu_torch"
 TOOLS = {"MetDetPy": PORT, "MetDetPhoto": f"{PORT}.photo",
          "ClipToolkit": f"{PORT}.clip", "evaluate": f"{PORT}.evaluate",
-         "train": f"{PORT}.train"}
+         "train": f"{PORT}.train", "bench": f"{PORT}.bench"}
 W, H, FPS = 256, 144, 25.0
 # the recheck runs as shipped, at a small model input
 ENV = {"METDETPY_TPU_YOLO_HW": "96x96"}
@@ -136,6 +136,21 @@ def test_frozen_main_entry_equals_detect_video(pyz_dir, clip, expected,
     assert bundle.startswith("bundle-")
     assert (cache / bundle / PORT / "csrc" / "window_diff.cu").is_file()
     assert (cache / bundle / "weights" / "yolov5s_v5.flax.npz").is_file()
+
+
+def test_frozen_bench_prints_one_json_line(pyz_dir, tmp_path):
+    """The frozen bench with JAX and the JAX package blocked: the link
+    probe's one JSON line on the CPU."""
+    res = subprocess.run(
+        [sys.executable, "-c", JAX_BLOCKED, str(pyz_dir / "bench.pyz"),
+         "--device", "cpu"], cwd=tmp_path,
+        env=_env(tmp_path, BENCH_MODE="probe"), capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    (line,) = res.stdout.splitlines()
+    record = json.loads(line)
+    assert record["metric"] == "link_probe"
+    assert record["device"] == "cpu"
 
 
 def test_bundle_launcher_equals_detect_video(clip, expected, tmp_path):
