@@ -155,6 +155,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    event for each launch of each kernel, their summed device ms beside
    phase 2's per-launch ms times the run's launches.
 
+20. Dry run: ``metdetpy_tpu_torch.dryrun`` in-process, ``entry()``'s
+   M3 step (216x384, T=16) and ``dryrun_multichip(8, shared=True)``'s six
+   programs with the 8 shards on the card, the launch counts set to 0 just
+   before and read just after: the step and programs 1-3 (the stream
+   step with its cross-stream total, the temporal step, two carried
+   super-blocks) equal to the same on the CPU bit for bit, program 5's 11
+   results and program 6's carried tail (on a machine of 2 or more cards,
+   also ``dryrun_multichip(n)`` with a card a shard, n = the cards up to
+   8, held the same way); then ``python -m
+   metdetpy_tpu_torch.dryrun 8 --shared`` in a subprocess: exit 0 and its
+   seven lines.
+
 Phase 2 also times window_diff over 8 streams in one launch (frames
 [8, 64, 540, 960], the history a view of the block before), exact against
 its plain version; the ragged cases include window_diff's stream axis.
@@ -2342,6 +2354,81 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
     return launches
 
 
+def phase_dryrun(card: str) -> dict:
+    """``metdetpy_tpu_torch.dryrun`` on the card: ``entry()``'s step and
+    the six programs of ``dryrun_multichip(8)`` with the 8 shards on the
+    card, the step and programs 1-3 held to the same on the CPU bit for
+    bit; on a machine with 2 or more cards, once more with a card a shard
+    (n = the cards, at most 8); the CLI in a subprocess. Returns the
+    launch counts of the in-process run on one card (entry and the
+    shared pass)."""
+    from metdetpy_tpu_torch import dryrun
+    from metdetpy_tpu_torch.ops import kernels as K
+    from metdetpy_tpu_torch.parallel.mesh import build_mesh
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    fn, args = dryrun.entry("cuda")
+    outs = fn(*args)
+    runs = {"8 shards on one card": (8, dryrun.dryrun_multichip(
+        8, device="cuda", shared=True))}
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    _require_launches("dryrun", launches)
+    cfn, cargs = dryrun.entry("cpu")
+    for i, (a, b) in enumerate(zip(outs[:5], cfn(*cargs)[:5])):
+        if not torch.equal(a.cpu(), b):
+            fail(f"dryrun entry: output {i} on the card differs from the "
+                 f"CPU's ({int((a.cpu() != b).sum())} values)")
+    n_cards = min(8, torch.cuda.device_count())
+    if n_cards >= 2:
+        runs[f"a card a shard, {n_cards} cards"] = (
+            n_cards, dryrun.dryrun_multichip(n_cards, device="cuda"))
+    for layout, (n, res) in runs.items():
+        cpu = build_mesh(n, device="cpu")
+        want = {"stream": dryrun.stream_step(cpu),
+                "temporal": dryrun.temporal(cpu),
+                "streaming": dryrun.streaming_temporal(cpu)[:2]}
+        got = {"stream": (res["stream"]["packed"], res["stream"]["total"]),
+               "temporal": (res["temporal"]["packed"],
+                            res["temporal"]["dst"]),
+               "streaming": (res["streaming"]["packed1"],
+                             res["streaming"]["packed2"])}
+        for prog, arrays in got.items():
+            for a, b in zip(arrays, want[prog]):
+                if not np.array_equal(a, b):
+                    fail(f"dryrun {prog} ({layout}): the card's output "
+                         f"differs from the CPU's")
+        if len(res["data_parallel"]["results"]) != n + 3:
+            fail(f"dryrun data-parallel ({layout}): "
+                 f"{len(res['data_parallel']['results'])} results for "
+                 f"{n + 3} images")
+        tfr, stacks2 = (res["temporal_dldet"]["frames"],
+                        res["temporal_dldet"]["stacks2"])
+        if not np.array_equal(stacks2[0], np.max(tfr[[-2, -1, 0]], axis=0)):
+            fail(f"dryrun temporal-dldet ({layout}): the carried tail is "
+                 f"missing from shard 0")
+    in_process_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "metdetpy_tpu_torch.dryrun", "8", "--shared"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or len(lines) != 7 or \
+            not lines[0].startswith("entry OK"):
+        fail(f"dryrun CLI exited {run.returncode} with {len(lines)} lines: "
+             f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    losses = ", ".join(f"{res['train']['loss']:.4f}"
+                       for _, res in runs.values())
+    print(f"dryrun on {card}: entry and 6 programs ({'; '.join(runs)}) "
+          f"in {in_process_s:.1f} s, programs 1-3 and the entry step equal "
+          f"to the CPU's bit for bit, train loss {losses}; launches "
+          f"{launches}; python -m metdetpy_tpu_torch.dryrun 8 --shared in "
+          f"{cli_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
@@ -2386,6 +2473,7 @@ def main() -> None:
     phase_train(card)
     bench_launches = phase_bench(card)
     frozen_launches = phase_frozen_and_trace(card, rows)
+    dryrun_launches = phase_dryrun(card)
     shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2393,6 +2481,7 @@ def main() -> None:
         row["temporal_launches"] = temporal_launches[name]
         row["bench_launches"] = bench_launches[name]
         row["frozen_entry_launches"] = frozen_launches[name]
+        row["dryrun_launches"] = dryrun_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@ from .base import BaseDetector, FrameResult
 NUM_LINES_TOOMUCH = 500
 MAX_ALLOW_GAP = 0.05  # diff-area % at which the adaptive hough gap closes
 N_EXTRAS = 6          # packed per-frame scalars (see _pack)
-COLLECT_GROUP = 8     # packed block buffers read back per device->host copy
+COLLECT_GROUP = 8     # default METDETPY_TPU_COLLECT_GROUP (collect_many)
 
 # sensitivity polynomial thr = a*sigma^2 + b
 # (reference MetLib/Detector.py:177-183)
@@ -354,11 +354,16 @@ class LineDetector(BaseDetector):
 
     def collect_many(self, handles: list) -> list[list[FrameResult]]:
         """Collect many dispatched blocks with one device->host copy per
-        group of COLLECT_GROUP blocks: the packed buffers are stacked on
-        the device and read back as one array."""
+        group of ``METDETPY_TPU_COLLECT_GROUP`` blocks (default
+        COLLECT_GROUP, read at each call): the packed buffers are stacked
+        on the device and read back as one array. The tail group is not
+        padded (the JAX package pads it so that one stack program
+        compiles)."""
+        group = max(1, int(os.environ.get("METDETPY_TPU_COLLECT_GROUP")
+                           or COLLECT_GROUP))
         bufs: list[np.ndarray] = []
-        for a in range(0, len(handles), COLLECT_GROUP):
-            arr = torch.stack([h[0] for h in handles[a:a + COLLECT_GROUP]])
+        for a in range(0, len(handles), group):
+            arr = torch.stack([h[0] for h in handles[a:a + group]])
             bufs.extend(arr.cpu().numpy())
         return [self._collect_from_buf(bufs[i], h)
                 for i, h in enumerate(handles)]

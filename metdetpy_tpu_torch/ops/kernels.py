@@ -369,7 +369,14 @@ def vote_plan(t: int, n_rho: int, n_sm: int) -> tuple[int, int]:
 
 def hough_vote_plain(xs: torch.Tensor, ys: torch.Tensor, valid: torch.Tensor,
                      n_rho: int, rho_offset: int) -> torch.Tensor:
-    """Spec: ``metdetpy_tpu/ops/hough.py::_vote`` as a scatter-add."""
+    """Spec: ``metdetpy_tpu/ops/hough.py::_vote`` as a scatter-add. On
+    the CPU the columns that are invalid in every frame are left out
+    first: they add nothing, and the main path's compacted lists are
+    mostly such columns."""
+    if xs.device.type == "cpu":
+        keep = valid.any(dim=0)
+        if not bool(keep.all()):
+            xs, ys, valid = xs[:, keep], ys[:, keep], valid[:, keep]
     t, n = xs.shape
     cos_t, sin_t = trig_tables(xs.device)
     rho = fma_f32(cos_t[None, :, None], xs[:, None, :],

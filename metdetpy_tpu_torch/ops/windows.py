@@ -111,7 +111,10 @@ def window_noise_std(history: torch.Tensor, frames: torch.Tensor, n: int,
     The JAX package forms the same integers in f32 (exact below 2^24) but
     sums them in f32 in XLA's order, so the two agree exactly while the
     frame sum stays below 2^24 and to f32 rounding (rtol 1e-6) above it.
-    Then var = sum / (length * h * w) and std = sqrt(max(var, 0)) in f32.
+    Then var = sum / (length * h * w) and std = sqrt(max(var, 0)) in f32,
+    correctly rounded: the root is taken in float64 and rounded once to
+    f32 (torch's vectorised f32 ``sqrt`` on the CPU is not correctly
+    rounded: sqrt(89.953125) comes out 1 ulp low).
 
     Returns:
       (stds [(S,) T] float32, new_history).
@@ -127,7 +130,7 @@ def window_noise_std(history: torch.Tensor, frames: torch.Tensor, n: int,
     total = ssd.sum(dim=(-2, -1)).to(torch.float32)
     denom = lengths.to(torch.float32) * frames.shape[-2] * frames.shape[-1]
     var = total / denom
-    stds = torch.sqrt(torch.clamp(var, min=0.0))
+    stds = torch.sqrt(torch.clamp(var, min=0.0).double()).float()
     return stds, _new_history(seq, history, t_block, n)
 
 

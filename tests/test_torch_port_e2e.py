@@ -172,13 +172,15 @@ def test_cli_writes_mdrf(video_file, tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Importing every module of the port and chip_smoke loads no jax
+    """Importing every module of the port (``dryrun.py`` named first, the
+    counterpart of ``__graft_entry__.py``) and chip_smoke loads no jax
     module and nothing of the JAX package (``metdetpy_tpu`` or
     ``metdetpy_tpu.*``; ``metdetpy_tpu_torch`` shares the prefix)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
         "import metdetpy_tpu_torch, metdetpy_tpu_torch.api, chip_smoke\n"
+        "import metdetpy_tpu_torch.dryrun\n"
         "for m in pkgutil.walk_packages(metdetpy_tpu_torch.__path__,\n"
         "                               'metdetpy_tpu_torch.'):\n"
         "    if not m.name.endswith('.libmetring'):  # the built C library\n"
