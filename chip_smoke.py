@@ -167,6 +167,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    metdetpy_tpu_torch.dryrun 8 --shared`` in a subprocess: exit 0 and its
    seven lines.
 
+21. Stage profiles: ``python -m metdetpy_tpu_torch.profile_step``'s
+   entry (``main``) in-process for ``block``, ``dense`` and ``split`` with
+   ``--quick`` at 960x540 and 64-frame blocks, the launch counts set to 0
+   just before and read just after: each stage's line (slope, device time
+   from the profiler, CUDA-graph time, launches) printed; it fails if a
+   capture raises, a graph replay differs from its eager call or a
+   profiler window lacks a record of a kernel launch.
+
 Phase 2 also times window_diff over 8 streams in one launch (frames
 [8, 64, 540, 960], the history a view of the block before), exact against
 its plain version; the ragged cases include window_diff's stream axis.
@@ -2429,6 +2437,39 @@ def phase_dryrun(card: str) -> dict:
     return launches
 
 
+def phase_profile_step(card: str) -> dict:
+    """``metdetpy_tpu_torch.profile_step`` on the card: the quiet step's
+    stages, the dense Hough stages and the active-sky split, each stage
+    with its three readings and its graph held to its eager call (the
+    module raises where a capture fails, a replay differs or a profile
+    lacks a kernel's records). Returns the launch counts of the three
+    runs."""
+    from metdetpy_tpu_torch import profile_step
+    from metdetpy_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    seconds = {}
+    K.reset_launch_counts()
+    for tool in profile_step.TOOLS:
+        t0 = time.perf_counter()
+        records = profile_step.main([tool, "--quick", "--h", str(H), "--w",
+                                     str(W), "--t", str(T_BLOCK)])
+        seconds[tool] = round(time.perf_counter() - t0, 1)
+        for rec in records:
+            readings = [rec[k] for k in ("slope_ms", "device_ms",
+                                         "graph_ms", "launches")]
+            if None in readings or (not rec.get("derived")
+                                    and rec["graph_equal"] is not True):
+                fail(f"profile_step {tool} {rec['stage']}: {rec}")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    _require_launches("profile_step", launches)
+    print(f"profile_step on {card}: block, dense and split --quick, every "
+          f"graph replay equal to its eager call, launches {launches}; "
+          f"seconds {seconds}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a GPU")
@@ -2474,6 +2515,7 @@ def main() -> None:
     bench_launches = phase_bench(card)
     frozen_launches = phase_frozen_and_trace(card, rows)
     dryrun_launches = phase_dryrun(card)
+    profile_step_launches = phase_profile_step(card)
     shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2482,6 +2524,7 @@ def main() -> None:
         row["bench_launches"] = bench_launches[name]
         row["frozen_entry_launches"] = frozen_launches[name]
         row["dryrun_launches"] = dryrun_launches[name]
+        row["profile_step_launches"] = profile_step_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,6 +98,17 @@ class EmaState:
                         scalar(init_threshold), scalar(init_threshold))
 
 
+def ema_update_frames(timer0: int, t_block: int, n: int,
+                      std_interval: int) -> list[int]:
+    """The frames of a block (0-based) whose noise EMA updates: the
+    schedule of SNR_SW.update (MetLib/Detector.py:81-91), every frame
+    while 1 < timer <= n, then every std_interval frames; frame i has
+    timer timer0 + 1 + i. It depends on the frame timer only."""
+    return [i for i in range(t_block)
+            if (timer0 + 1 + i > n and (timer0 + 1 + i) % std_interval == 0)
+            or 1 < timer0 + 1 + i <= n]
+
+
 def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
                         *, n: int, std_interval: int, momentum: float,
                         warmup_speed: float, adaptive: bool, coef_a: float,
@@ -120,10 +131,10 @@ def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
     speed = _F32(warmup_speed)
     val = state.cur_value
     t_cnt, warm_on, cur_m = state.t, state.warmup_on, state.cur_momentum
+    updates = set(ema_update_frames(timer0, t_block, n, std_interval))
     vals = []
     for i in range(t_block):
-        timer = timer0 + 1 + i
-        if (timer > n and timer % std_interval == 0) or 1 < timer <= n:
+        if i in updates:
             k = _F32(t_cnt) * one_minus_m * speed
             omk = _F32(1) - k
             warm_m = m_f * _fma_host(-omk, omk, 1.0)
@@ -224,6 +235,27 @@ def _m3_lines(closed, dy_hist, timer0, timer_step, ema_vals, thr_f, thr, *,
     diff area, batched Hough of all frames together, the packed buffer.
     Stream s starts at frame timer0 + s * timer_step. Returns (packed,
     dst, new dy history)."""
+    dst, dst_px, dst_sum, new_dy = _dst_and_area(
+        closed, dy_hist, timer0, timer_step, n=n, dy_mask=dy_mask,
+        mask_area=mask_area, sharded_fold=sharded_fold)
+    gap_scale = _dst_sum_scales(mask_area, sharded_fold)[1]
+    # max(0, 1 - dst_sum / MAX_ALLOW_GAP) * max_gap
+    gap = torch.clamp(fma_f32(-dst_px, gap_scale, 1.0), min=0.0) * max_gap
+    h, w = dst.shape[-2:]
+    hough = hough_lines_batch(dst.reshape(-1, h, w), gap.reshape(-1),
+                              threshold=hough_threshold, min_len=min_len,
+                              max_points=max_points, max_peaks=max_peaks)
+    packed = _pack(hough.lines, hough.valid, dst_sum.reshape(-1),
+                   hough.npix, hough.overflow, ema_vals.reshape(-1),
+                   thr_f.reshape(-1), thr.reshape(-1))
+    return packed.reshape(*dst.shape[:-2], -1), dst, new_dy
+
+
+def _dst_and_area(closed, dy_hist, timer0, timer_step, *, n, dy_mask,
+                  mask_area, sharded_fold=False):
+    """The dynamic mask and the diff area of ``_m3_lines``, everything of
+    the step between binarization and the Hough stage. Returns (dst, its
+    active pixels a frame as f32, the diff area, new dy history)."""
     new_dy = dy_hist
     dst = closed
     if dy_mask:
@@ -237,19 +269,9 @@ def _m3_lines(closed, dy_hist, timer0, timer_step, ema_vals, thr_f, thr, *,
         passmask = (dy_sum <= ((lens - 1) * 255)[..., None, None]).to(
             torch.uint8)
         dst = closed * filters.erode3x3(passmask)
-    area_scale, gap_scale = _dst_sum_scales(mask_area, sharded_fold)
+    area_scale = _dst_sum_scales(mask_area, sharded_fold)[0]
     dst_px = dst.sum(dim=(-2, -1), dtype=torch.int64).to(torch.float32)
-    dst_sum = dst_px * area_scale
-    # max(0, 1 - dst_sum / MAX_ALLOW_GAP) * max_gap
-    gap = torch.clamp(fma_f32(-dst_px, gap_scale, 1.0), min=0.0) * max_gap
-    h, w = dst.shape[-2:]
-    hough = hough_lines_batch(dst.reshape(-1, h, w), gap.reshape(-1),
-                              threshold=hough_threshold, min_len=min_len,
-                              max_points=max_points, max_peaks=max_peaks)
-    packed = _pack(hough.lines, hough.valid, dst_sum.reshape(-1),
-                   hough.npix, hough.overflow, ema_vals.reshape(-1),
-                   thr_f.reshape(-1), thr.reshape(-1))
-    return packed.reshape(*dst.shape[:-2], -1), dst, new_dy
+    return dst, dst_px, dst_px * area_scale, new_dy
 
 
 def _pack(lines, valid, dst_sum, npix, overflow, ema_vals, thr_f, thr):

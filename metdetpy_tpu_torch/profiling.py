@@ -74,6 +74,7 @@ def _new_trace_path(trace_dir: str) -> str:
 
 
 _PAD_KERNELS = 64
+_HEAD_WAIT_S = 0.02
 
 
 def _pad_kernels(device: torch.device) -> None:
@@ -111,13 +112,17 @@ def maybe_torch_trace(device: torch.device):
     # of them, seen on an H100 with torch 2.11), once also the first of
     # the recorded step: a warm-up step with small kernels, whose records
     # are discarded, and as many again at the head of the recorded step
-    # take that loss
+    # take that loss. In profile_step's windows the loss once reached past
+    # 64 head kernels launched at once after the step began; a host wait
+    # first kept every record (tools/torch_profile_pad_check.py)
     prof = torch.profiler.profile(
         activities=activities,
         schedule=torch.profiler.schedule(wait=0, warmup=1, active=1))
     prof.start()
     _pad_kernels(device)
     prof.step()
+    if device.type == "cuda":
+        time.sleep(_HEAD_WAIT_S)
     _pad_kernels(device)
     t1 = time.perf_counter()
     try:
