@@ -153,7 +153,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``detect_video`` on the same clip untraced and traced: records and
    launches equal, frames/s of both, the trace parses and holds a device
    event for each launch of each kernel, their summed device ms beside
-   phase 2's per-launch ms times the run's launches.
+   phase 2's per-launch ms times the run's launches. Each run in-process
+   starts with no idle graph of the M3 step (``step_graph.clear_idle``),
+   so that it captures as a fresh process does.
 
 20. Dry run: ``metdetpy_tpu_torch.dryrun`` in-process, ``entry()``'s
    M3 step (216x384, T=16) and ``dryrun_multichip(8, shared=True)``'s six
@@ -175,6 +177,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    capture raises, a graph replay differs from its eager call or a
    profiler window lacks a record of a kernel launch.
 
+22. The step as one program a block: (a) one ``M3Detector`` at 960x540
+   runs 27 consecutive 64-frame blocks (the warm-up and all 25 phases of
+   the EMA's interval against the block) through its CUDA graph
+   (``detectors/step_graph.py``), the launch counts set to 0 just before
+   and read just after; each block's packed buffer, dst, every carry and
+   the timer equal the eager ``_m3_block_step`` chain on the card bit for
+   bit, and blocks 0, 1, 13 and 26, run on the CPU from the same carries,
+   give the same packed buffers; it prints the capture's seconds and pool
+   bytes, a replay's device ms, the host ms a block of the graph and of
+   the eager step and the host's CUDA runtime calls of one block of each;
+   a second detector of the same shapes replays the first one's graph
+   without a capture, and a third beside it captures its own, released
+   when both are dropped. (b) ``detect_video`` with m3det_normal (recheck
+   off) on (a)'s clip at 1920x1080 (each pixel 2x2), four times over (1024
+   frames in memory), detected at 960x540 by a detector that adopts (a)'s
+   graph: frames/s, ``dispatch_s``, host ms a block; then every capture
+   of the process. Every earlier phase that runs an ``M3Detector`` on the
+   card runs it through its graph too.
+
 Phase 2 also times window_diff over 8 streams in one launch (frames
 [8, 64, 540, 960], the history a view of the block before), exact against
 its plain version; the ragged cases include window_diff's stream axis.
@@ -190,6 +211,7 @@ of JAX or of the JAX package, and exits non-zero without a card.
 """
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -348,7 +370,9 @@ def kernel_cases(dev: torch.device) -> dict:
     n_pick = int(inside.sum())
     return {
         "window_diff": (
-            K.window_diff, K.window_diff_plain, (*wd, N_WIN, 10),
+            K.window_diff, K.window_diff_plain,
+            # the frame timer as the step carries it, on the card
+            (*wd, N_WIN, torch.tensor(10, dtype=torch.int32, device=dev)),
             "metdetpy_tpu_torch/csrc/window_diff.cu", f"{PALLAS}:281",
             # read n-1+T frames, write T diff frames (the new history is
             # a view of the block where n-1 <= T, else n-1 more frames);
@@ -424,7 +448,8 @@ def stream_window_diff_times(dev: torch.device) -> dict:
                          device=dev, dtype=torch.uint8)
     frames = torch.randint(0, 256, (N_STREAMS, T_BLOCK, H, W), generator=g,
                            device=dev, dtype=torch.uint8)
-    args = (prev[:, T_BLOCK - (N_WIN - 1):], frames, N_WIN, 10)
+    args = (prev[:, T_BLOCK - (N_WIN - 1):], frames, N_WIN,
+            torch.tensor(10, dtype=torch.int32, device=dev))
     err = check_exact("window_diff, 8 streams", K.window_diff,
                       K.window_diff_plain, args)
     hw = H * W
@@ -1459,10 +1484,9 @@ def _m3_stream_reference(frames: np.ndarray, cfg, logger):
     for pos in range(0, frames.shape[0] - T_BLOCK + 1, T_BLOCK):
         block = torch.from_numpy(frames[pos:pos + T_BLOCK]).cuda()
         (packed, dst, det._gray_hist, det._sub_hist, det._dy_hist,
-         det._ema) = _m3_block_step(
+         det._ema, det._timer_dev) = _m3_block_step(
             det._gray_hist, det._sub_hist, det._dy_hist, det._ema, block,
-            det.timer, **det._step_static_kwargs(), sharded_fold=True)
-        det.timer += T_BLOCK
+            det._timer_dev, **det._step_static_kwargs(), sharded_fold=True)
         buf = packed.cpu().numpy()
         packed_all.append(buf)
         for j, (lines, cates) in enumerate(
@@ -2221,6 +2245,7 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
     in-tree main entry's run."""
     from metdetpy_tpu_torch.__main__ import main as cli_main
     from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.detectors import step_graph
     from metdetpy_tpu_torch.ops import kernels as K
     from metdetpy_tpu_torch.structs import MainDetectCfg
     from metdetpy_tpu_torch.utils import relative2abs_path
@@ -2230,8 +2255,10 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
     args = [video, "--mode", "backend", "--exp-time", "real-time"]
     t_phase = time.perf_counter()
 
-    # (a) the in-tree main entry, then the frozen one in a fresh HOME
+    # (a) the in-tree main entry, then the frozen one in a fresh HOME;
+    # both capture the step's graph (a fresh process holds no idle one)
     tree_out = os.path.join(FILES, "frozen_tree.json")
+    step_graph.clear_idle()
     K.reset_launch_counts()
     t0 = time.perf_counter()
     cli_main([*args, "--save-path", tree_out])
@@ -2321,6 +2348,7 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
     for run, env in (("untraced", {}),
                      ("traced", {"METDETPY_TPU_TRACE_DIR": trace_dir})):
         with env_set(env):
+            step_graph.clear_idle()  # each run captures, as a fresh one
             K.reset_launch_counts()
             t0 = time.perf_counter()
             mdrf = detect_video(video, None, cfg, work_mode="backend",
@@ -2469,6 +2497,232 @@ def phase_profile_step(card: str) -> dict:
           flush=True)
     return launches
 
+STEP_GRAPH_BLOCKS = 27   # the warm-up block and all 25 EMA phases (and one)
+
+
+def _carry_tensors(gray, sub, dy, ema, timer) -> list:
+    return [gray, sub, dy, *ema.tensors(), timer]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _host_launches(fn) -> dict:
+    """{CUDA runtime call: count} of the host's calls during ``fn()``
+    (launches, graph launches, copies, fills), from ``torch.profiler``'s
+    CPU activity, and the device records."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    calls, device = {}, 0
+    for ev in prof.key_averages():
+        if ev.key.startswith("cuda") and ev.key[4:5].isupper() and any(
+                w in ev.key for w in ("Launch", "Memcpy", "Memset")):
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+        elif ev.device_type == torch.autograd.DeviceType.CUDA and \
+                getattr(ev, "self_device_time_total", 0):
+            device += ev.count
+    return {"runtime_calls": calls, "total": sum(calls.values()),
+            "device_records": device}
+
+
+def _host_ms(fn, n: int) -> float:
+    """Median host ms of ``fn()`` over ``n`` calls, no wait for the card
+    between them (the card drains the queue behind)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def phase_step_graph(card: str) -> dict:
+    """The M3 step as one CUDA graph a block (``detectors.step_graph``):
+    (a) one M3Detector at 960x540 runs 27 consecutive 64-frame blocks
+    through its graph, the launch counts set to 0 just before and read just
+    after; each block's packed buffer, dst, every carry and the timer equal
+    the eager ``_m3_block_step`` chain on the card bit for bit, and blocks
+    0, 1, 13 and 26 from the same carries equal the CPU's packed buffers;
+    the replay's device ms, the host ms a block of the graph and of the
+    eager step, and the host's runtime calls of one block each; the graph
+    adopted by a second detector and a third's released; (b)
+    ``detect_video`` with m3det_normal (recheck off) on (a)'s clip at
+    1920x1080, 1024 frames, detected at 960x540: frames/s, ``dispatch_s``,
+    host ms a block. Returns the launch counts of (a)."""
+    from metdetpy_tpu_torch import bench
+    from metdetpy_tpu_torch.detectors import step_graph
+    from metdetpy_tpu_torch.detectors.m3det import (_m3_block_step,
+                                                    load_state_numpy)
+    from metdetpy_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    step_graph.clear_idle()  # earlier phases left graphs of this shape
+    n_clip = 4
+    frames, _, _ = synth_clip(W, H, n_clip * T_BLOCK / FPS, 2.0, 4.0,
+                              color=False)
+    blocks = [torch.from_numpy(frames[i * T_BLOCK:(i + 1) * T_BLOCK]).cuda()
+              for i in range(n_clip)]
+    cfg = preset_cfg("m3det_normal", recheck=False)
+    det = bench._m3_detector(cfg, H, W, "cuda")
+    kw = det._step_static_kwargs()
+    n_captures = len(step_graph.CAPTURES)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    graph_out = []
+    for b in range(STEP_GRAPH_BLOCKS):
+        packed, dst = det.process_block_async(blocks[b % n_clip])
+        graph_out.append((packed, dst, [x.clone() for x in _carry_tensors(
+            det._gray_hist, det._sub_hist, det._dy_hist, det._ema,
+            det._timer_dev)]))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    _require_launches("step graph", launches)
+    captures = step_graph.CAPTURES[n_captures:]
+    if len(captures) != 1:
+        fail(f"step graph: {len(captures)} captures for one block shape")
+    if det.timer != STEP_GRAPH_BLOCKS * T_BLOCK:
+        fail(f"step graph: the host's timer reads {det.timer}")
+
+    # the eager chain from the same start (a fresh detector's carries),
+    # compared block by block
+    ref = bench._m3_detector(cfg, H, W, "cuda")
+    carry = [ref._gray_hist, ref._sub_hist, ref._dy_hist, ref._ema,
+             ref._timer_dev]
+    del ref
+    n_lines = 0
+    for b, (packed, dst, carries) in enumerate(graph_out):
+        out = _m3_block_step(*carry[:4], blocks[b % n_clip], carry[4], **kw)
+        carry = list(out[2:])
+        want = _carry_tensors(*carry)
+        names = ["gray", "sub", "dy", "ema.cur_value", "ema.t",
+                 "ema.warmup_on", "ema.cur_momentum", "ema.bi_threshold",
+                 "ema.bi_thr_float", "timer"]
+        for name, got, exp in [("packed", packed, out[0]),
+                               ("dst", dst, out[1]),
+                               *zip(names, carries, want)]:
+            if not _same_bits(got, exp):
+                fail(f"step graph: block {b}'s {name} differs from the "
+                     f"eager step's")
+        n_lines += int((packed[:, MAX_PEAKS * 4:MAX_PEAKS * 5] > 0.5).sum())
+    if int(carry[4]) != STEP_GRAPH_BLOCKS * T_BLOCK or n_lines == 0:
+        fail(f"step graph: timer {int(carry[4])}, {n_lines} lines")
+
+    # the CPU's step from the graph's carries before the block
+    cpu_checked = []
+    for b in (0, 1, 13, 26):
+        cdet = bench._m3_detector(cfg, H, W, "cpu")
+        if b:
+            prev = [x.cpu().numpy() for x in graph_out[b - 1][2]]
+            load_state_numpy(cdet, {"gray_hist": prev[0],
+                                    "sub_hist": prev[1], "dy_hist": prev[2],
+                                    "ema": prev[3:9], "timer": b * T_BLOCK})
+        want, _ = cdet.process_block_async(blocks[b % n_clip].cpu())
+        if not np.array_equal(graph_out[b][0].cpu().numpy(), want.numpy()):
+            fail(f"step graph: block {b}'s packed buffer differs from the "
+                 f"CPU's")
+        cpu_checked.append(b)
+    first_packed = graph_out[0][0]
+    del graph_out
+
+    # device ms of a replay, host ms a block, runtime calls of one block
+    blk = blocks[0]
+    replay_ms = cuda_ms(lambda: det.process_block_async(blk), 20)
+    graph_host_ms = _host_ms(lambda: det.process_block_async(blk), 20)
+    eager_host_ms = _host_ms(lambda: _m3_block_step(
+        det._gray_hist, det._sub_hist, det._dy_hist, det._ema, blk,
+        det._timer_dev, **kw), 10)
+    graph_calls = _host_launches(lambda: det.process_block_async(blk))
+    eager_calls = _host_launches(lambda: _m3_block_step(
+        det._gray_hist, det._sub_hist, det._dy_hist, det._ema, blk,
+        det._timer_dev, **kw))
+    # the graph outlives its detector: the next detector of these carry
+    # shapes adopts it (no capture, from its own fresh state); a second
+    # graph of the same shapes goes with its detector, pool and all
+    cap = captures[0]
+    del det
+    gc.collect()
+    n_captures = len(step_graph.CAPTURES)
+    det2 = bench._m3_detector(cfg, H, W, "cuda")
+    again, _ = det2.process_block_async(blocks[0])
+    if len(step_graph.CAPTURES) != n_captures or not torch.equal(
+            again, first_packed):
+        fail("step graph: a second detector did not replay the first "
+             "one's graph from its own fresh state")
+    det3 = bench._m3_detector(cfg, H, W, "cuda")
+    det3.process_block_async(blocks[0])
+    if len(step_graph.CAPTURES) != n_captures + 1:
+        fail("step graph: a detector beside one that holds the graph did "
+             "not capture its own")
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    del det2, det3, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    released = reserved - torch.cuda.memory_reserved()
+    if released < cap["pool_bytes"] // 2:
+        fail(f"step graph: dropping two detectors of one shape released "
+             f"{released} bytes; a graph pool holds {cap['pool_bytes']}")
+    print(f"step graph on {card}: {STEP_GRAPH_BLOCKS} blocks of "
+          f"{T_BLOCK}x{H}x{W} through M3Detector's graph, packed, dst, every "
+          f"carry and the timer equal to the eager step's bit for bit, "
+          f"blocks {cpu_checked} equal to the CPU's; {n_lines} lines; "
+          f"launches {launches}; capture {cap['seconds']:.3f} s after "
+          f"warm-ups of {cap['warmup_seconds']:.3f} s, pool "
+          f"{cap['pool_bytes']} bytes (the graph adopted by the next "
+          f"detector, a second one's {released} bytes released with it), "
+          f"kernel launches a replay "
+          f"{cap['launches']}; a block on the card {replay_ms:.4f} ms "
+          f"(replay with its input copy and output clones); host ms a block "
+          f"{graph_host_ms:.4f} (graph) against {eager_host_ms:.4f} (eager "
+          f"step); the host's runtime calls of one block: graph "
+          f"{json.dumps(graph_calls)}, eager {json.dumps(eager_calls)}",
+          flush=True)
+
+    # (b) the main path at camera size
+    fw, fh = 2 * W, 2 * H
+    # (a)'s clip at camera size, each pixel 2x2 (the 2:1 preprocess gives
+    # (a)'s frames back), four times over: 2.1 GB, read as views
+    clip = np.concatenate([frames.repeat(2, axis=1).repeat(2, axis=2)] * 4)
+    n_frames = clip.shape[0]
+    n_captures = len(step_graph.CAPTURES)
+    mdrf, run_launches, wall = _run_m3(
+        clip, preset_cfg("m3det_normal", recheck=False), "cuda")
+    del clip
+    _require_launches("step graph detect_video", run_launches)
+    perf = mdrf.performance
+    if perf["recovered_blocks"] or not mdrf.results:
+        fail(f"step graph detect_video: {perf['recovered_blocks']} blocks "
+             f"dropped, {len(mdrf.results)} records")
+    n_blocks = n_frames // T_BLOCK
+    # the detector adopts the graph (a) left idle, so the run holds no
+    # capture; where it does, the first block's dispatch holds it
+    run_caps = step_graph.CAPTURES[n_captures:]
+    first_s = sum(c["warmup_seconds"] + c["seconds"] for c in run_caps)
+    print(f"step graph detect_video on {card}: m3det_normal (recheck off), "
+          f"{n_frames} frames {fw}x{fh} -> {W}x{H} in {wall:.3f} s = "
+          f"{n_frames / wall:.2f} frames/s; dispatch_s "
+          f"{perf.get('dispatch_s')} for {n_blocks} blocks, of it "
+          f"{first_s:.3f} s of {len(run_caps)} capture(s): "
+          f"{1e3 * (perf['dispatch_s'] - first_s) / n_blocks:.3f} host ms "
+          f"a block besides; perf {json.dumps(perf)}; launches "
+          f"{run_launches}", flush=True)
+    caps = [(c["key"][1], round(c["warmup_seconds"], 3),
+             round(c["seconds"], 3), c["pool_bytes"])
+            for c in step_graph.CAPTURES]
+    print(f"step graph: the {len(caps)} captures of this process (block "
+          f"shape, warm-up s, capture s, reserved-memory growth; the "
+          f"growth also counts what other threads allocated meanwhile): "
+          f"{caps}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2516,6 +2770,7 @@ def main() -> None:
     frozen_launches = phase_frozen_and_trace(card, rows)
     dryrun_launches = phase_dryrun(card)
     profile_step_launches = phase_profile_step(card)
+    step_graph_launches = phase_step_graph(card)
     shutil.rmtree(FILES)
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2525,6 +2780,7 @@ def main() -> None:
         row["frozen_entry_launches"] = frozen_launches[name]
         row["dryrun_launches"] = dryrun_launches[name]
         row["profile_step_launches"] = profile_step_launches[name]
+        row["step_graph_launches"] = step_graph_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -109,18 +109,14 @@ def detector_state(detector) -> dict[str, np.ndarray]:
         if hasattr(detector, "_hist"):  # MLDetector
             return {"ml_hist": _host(detector._hist)}
         return {}  # stateless detector: it re-warms after a resume
-    ema = detector._ema
-    fields = (ema.cur_value, ema.t, ema.warmup_on, ema.cur_momentum,
-              ema.bi_threshold, ema.bi_thr_float)
     out = {
         "gray_hist": _host(detector._gray_hist),
         "sub_hist": _host(detector._sub_hist),
         "dy_hist": _host(detector._dy_hist),
         "timer": np.asarray(detector.timer, np.int64),
     }
-    for i, (v, dt) in enumerate(zip(fields, _EMA_DTYPES)):
-        v = _host(v) if isinstance(v, torch.Tensor) else v
-        out[f"ema_{i}"] = np.asarray(v, dt)
+    for i, (v, dt) in enumerate(zip(detector._ema.tensors(), _EMA_DTYPES)):
+        out[f"ema_{i}"] = np.asarray(_host(v), dt)
     if hasattr(detector, "_classic_hist"):
         out["classic_hist"] = _host(detector._classic_hist)
     return out

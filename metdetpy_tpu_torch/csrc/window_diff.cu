@@ -42,6 +42,10 @@
 //   offsets are a template flag: a launch of one stream compiles to the
 //   single-stream kernel (its pointers stay kernel parameters; with the
 //   offsets the kernel holds them in registers: 117 against 80).
+// - Timer: the frame timer is the block step's device carry (a 0-dim int32
+//   the step advances on the card), so the kernel reads timer0 through a
+//   pointer and clamps it to n itself: no host value of it is needed to
+//   launch, and one launch (or a captured graph of it) serves every block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,10 +99,11 @@ __global__ void __launch_bounds__(kMaxThreads)
                        const uint8_t* __restrict__ frames,
                        uint8_t* __restrict__ diff,
                        uint8_t* __restrict__ new_hist, long long hw, int n,
-                       int t_block, int timer0_base, int timer_step,
-                       long long hist_ss, bool vec) {
+                       int t_block, const int* __restrict__ timer0_ptr,
+                       int timer_step, long long hist_ss, bool vec) {
   extern __shared__ uint4 smem[];
-  long long timer0 = timer0_base;
+  // the window length only needs min(timer, n)
+  long long timer0 = min((long long)__ldg(timer0_ptr), (long long)n);
   if (kStreams) {
     const long long stream = blockIdx.y;
     hist += stream * hist_ss;
@@ -238,7 +243,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 using Kernel = void (*)(const uint8_t*, const uint8_t*, uint8_t*, uint8_t*,
-                       long long, int, int, int, int, long long, bool);
+                       long long, int, int, const int*, int, long long,
+                       bool);
 // the single-stream kernel and the one with stream offsets
 const Kernel kKernels[2] = {window_diff_kernel<false>,
                             window_diff_kernel<true>};
@@ -246,11 +252,12 @@ const Kernel kKernels[2] = {window_diff_kernel<false>,
 // new_hist: nullptr where the caller takes the new history as a view of
 // frames (n - 1 <= t_block). frames, diff and new_hist are contiguous
 // [n_streams, ...]; hist_ss is the distance in bytes between two streams'
-// histories. timer0 and timer_step are at most n (the window length only
+// histories. timer0 points to the frame timer of stream 0, a non-negative
+// int32 on the device; timer_step is at most n (the window length only
 // needs min(timer, n)).
 extern "C" int mdt_window_diff(const void* hist, const void* frames,
                                void* diff, void* new_hist, long long hw,
-                               int n, int t_block, int timer0,
+                               int n, int t_block, const void* timer0,
                                int n_streams, long long hist_ss,
                                int timer_step, void* stream) {
   if (hw <= 0 || t_block <= 0 || n_streams <= 0) return 0;
@@ -289,6 +296,7 @@ extern "C" int mdt_window_diff(const void* hist, const void* frames,
   kernel<<<grid, (unsigned)threads, (size_t)(threads * per_thread),
            (cudaStream_t)stream>>>(
       (const uint8_t*)hist, (const uint8_t*)frames, (uint8_t*)diff,
-      (uint8_t*)new_hist, hw, n, t_block, timer0, timer_step, hist_ss, vec);
+      (uint8_t*)new_hist, hw, n, t_block, (const int*)timer0, timer_step,
+      hist_ss, vec);
   return (int)cudaGetLastError();
 }

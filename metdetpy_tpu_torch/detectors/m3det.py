@@ -10,16 +10,22 @@ runs on the device with no host sync:
   -> batched Hough (vote and walk-pick CUDA kernels)
   -> everything the host needs packed into ONE f32 buffer.
 
-The EMA's update schedule, update count, warmup flag and momentum depend
-only on the frame timer, never on the frames, so they are kept and
-computed on the host (in f32, with the fused multiply-adds XLA's CPU
-backend forms); only the EMA value and the thresholds live on the device.
+Window history, binarized-response history (dynamic mask), EMA state and
+the frame timer are carried across blocks as device tensors, as the JAX
+package carries them: the EMA's update schedule, update count, warm-up
+flag and momentum are computed on the device from the timer tensor (in
+f32, with the fused multiply-adds XLA's CPU backend forms), so one
+captured program of the step serves every block. On a card,
+``M3Detector`` dispatches each block as one replay of a CUDA graph of the
+step (``step_graph.StepGraph``), the counterpart of the JAX package's
+``jax.jit`` on ``_m3_block_step``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -33,6 +39,7 @@ from ..ops.hough import hough_lines_batch
 from ..structs import BinaryCfg
 from ..utils import lineset_nms
 from .base import BaseDetector, FrameResult
+from .step_graph import StepGraph
 
 NUM_LINES_TOOMUCH = 500
 MAX_ALLOW_GAP = 0.05  # diff-area % at which the adaptive hough gap closes
@@ -46,11 +53,6 @@ SENSITIVITY_COEF = {"low": (2.0, 4.4), "normal": (1.2, 3.6),
 ABS_SENSITIVITY = {"high": 3, "normal": 5, "low": 7}
 
 _F32 = np.float32
-
-
-def _fma_host(a, b, c) -> np.float32:
-    """round_f32(a * b + c) of f32 host scalars (see ops.f32.fma_f32)."""
-    return _F32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
 def select_subarea(mask: np.ndarray, area: float):
@@ -79,23 +81,33 @@ def select_subarea(mask: np.ndarray, area: float):
 @dataclasses.dataclass
 class EmaState:
     """Noise-EMA state (reference EMA with quadratic warmup,
-    MetLib/utils.py:324-368). The value and thresholds are f32 device
-    tensors, 0-dim for one stream or [S] for S streams that share a frame
-    timer; the data-independent schedule state is on the host."""
+    MetLib/utils.py:324-368): six device tensors, each 0-dim for one stream
+    or [S] for S streams that share a frame timer, as the JAX package's
+    NamedTuple holds them."""
     cur_value: torch.Tensor     # f32
-    t: int                      # update count
-    warmup_on: bool
-    cur_momentum: np.float32
+    t: torch.Tensor             # i32 update count
+    warmup_on: torch.Tensor     # bool
+    cur_momentum: torch.Tensor  # f32
     bi_threshold: torch.Tensor  # f32 current integer threshold
     bi_thr_float: torch.Tensor  # f32 unrounded threshold (for visu)
 
     @staticmethod
     def init(momentum: float, init_threshold: float, device: torch.device,
              shape: tuple = ()) -> "EmaState":
-        def scalar(v):
-            return torch.full(shape, v, dtype=torch.float32, device=device)
-        return EmaState(scalar(0.0), 0, True, _F32(momentum),
-                        scalar(init_threshold), scalar(init_threshold))
+        def full(v, dtype):
+            return torch.full(shape, v, dtype=dtype, device=device)
+        f32 = torch.float32
+        return EmaState(full(0.0, f32), full(0, torch.int32),
+                        full(True, torch.bool), full(float(_F32(momentum)),
+                                                     f32),
+                        full(float(init_threshold), f32),
+                        full(float(init_threshold), f32))
+
+    def tensors(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def clone(self) -> "EmaState":
+        return EmaState(*(x.clone() for x in self.tensors()))
 
 
 def ema_update_frames(timer0: int, t_block: int, n: int,
@@ -103,22 +115,42 @@ def ema_update_frames(timer0: int, t_block: int, n: int,
     """The frames of a block (0-based) whose noise EMA updates: the
     schedule of SNR_SW.update (MetLib/Detector.py:81-91), every frame
     while 1 < timer <= n, then every std_interval frames; frame i has
-    timer timer0 + 1 + i. It depends on the frame timer only."""
+    timer timer0 + 1 + i. A host statement of the schedule that
+    ``_ema_threshold_scan`` computes on the device (the tests and the
+    stage profiler's lines read it)."""
     return [i for i in range(t_block)
             if (timer0 + 1 + i > n and (timer0 + 1 + i) % std_interval == 0)
             or 1 < timer0 + 1 + i <= n]
 
 
-def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
+def ema_update_bound(t_block: int, n: int, std_interval: int) -> int:
+    """The most EMA updates a block of t_block frames can hold: the n-1
+    frames of the warm-up and ceil(t_block / std_interval) multiples of
+    the interval, at most t_block."""
+    return min(t_block, n - 1 + -(-t_block // std_interval))
+
+
+def _ema_threshold_scan(stds: torch.Tensor, timer0, state: EmaState,
                         *, n: int, std_interval: int, momentum: float,
                         warmup_speed: float, adaptive: bool, coef_a: float,
                         coef_b: float):
     """Per-frame noise EMA + adaptive threshold over a block: stds [T], or
-    [S, T] for S streams with ``state`` of shape [S] (one host schedule).
+    [S, T] for S streams with ``state`` of shape [S] (one schedule).
+    ``timer0`` is the frame timer, a 0-dim int32 device tensor (or a host
+    int, which becomes one).
 
     Update schedule of SNR_SW.update (MetLib/Detector.py:81-91): every
     frame while 1 < timer <= n, then every std_interval frames. Threshold
     of LineDetector.update (:225-229) with round-half-to-even.
+
+    Everything is device data, as in the JAX package's ``lax.scan``: the
+    update mask comes from the timer tensor, each frame's update count is
+    the state's plus an exclusive cumsum of the mask, the warm-up flag a
+    running AND of ``k < 1`` over the updates, and the momentum of each
+    update follows from them. Only the value recurrence is sequential; it
+    runs over the block's updates, compacted in order, for the static
+    bound ``ema_update_bound`` (the slots past the block's updates are
+    identities, ``v * 1 + 0``).
 
     f32 arithmetic follows the JAX package's scan as XLA's CPU backend
     compiles it: ``1 - (1-k)^2`` and ``m*v + (1-m)*s`` and ``a*v^2 + b``
@@ -126,42 +158,71 @@ def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
     f32, each of the shape of ``stds``, and the new state).
     """
     t_block = stds.shape[-1]
-    m_f = _F32(momentum)
-    one_minus_m = _F32(1 - momentum)
-    speed = _F32(warmup_speed)
+    dev = stds.device
+    timer0 = windows.as_timer(timer0, dev)
+    m_f = float(_F32(momentum))
+    steps = torch.arange(t_block, dtype=torch.int32, device=dev)
+    timers = timer0 + 1 + steps
+    upd = (((timers > n) & (timers % std_interval == 0))
+           | ((timers > 1) & (timers <= n)))
+    n_upd = torch.cumsum(upd, dim=0, dtype=torch.int32)  # updates <= i
+    # update count before frame i; k = t * (1 - m) * speed, whose two
+    # constants XLA folds into one f32 product before multiplying by t
+    t_at = state.t[..., None] + (n_upd - upd.to(torch.int32))
+    k = t_at.to(torch.float32) * float(
+        _F32(1 - momentum) * _F32(warmup_speed))
+    omk = 1 - k
+    warm_m = fma_f32(-omk, omk, 1.0) * m_f
+    below = k < 1
+    # the warm-up is on after frame i while every update so far had k < 1
+    warm_after = state.warmup_on[..., None] & (
+        torch.cumsum(upd & ~below, dim=-1) == 0)
+    warm_before = torch.cat([state.warmup_on[..., None],
+                             warm_after[..., :-1]], dim=-1)
+    cur_m = torch.where(warm_before & below, warm_m, m_f)
+
+    # the block's updates in order: update j (1-based) is at the first
+    # frame whose count reaches j; slots past the block's count are
+    # identities
+    bound = ema_update_bound(t_block, n, std_interval)
+    j = torch.arange(1, bound + 1, dtype=torch.int32, device=dev)
+    frame_of = torch.searchsorted(n_upd, j).clamp(max=t_block - 1)
+    real = j <= n_upd[-1]
+    m_j = cur_m.index_select(-1, frame_of)
+    s_j = stds.index_select(-1, frame_of) * (1 - m_j)
+    a64 = torch.where(real, m_j, 1.0).double()
+    b64 = torch.where(real, s_j, 0.0).double()
     val = state.cur_value
-    t_cnt, warm_on, cur_m = state.t, state.warmup_on, state.cur_momentum
-    updates = set(ema_update_frames(timer0, t_block, n, std_interval))
-    vals = []
-    for i in range(t_block):
-        if i in updates:
-            k = _F32(t_cnt) * one_minus_m * speed
-            omk = _F32(1) - k
-            warm_m = m_f * _fma_host(-omk, omk, 1.0)
-            cur_m = warm_m if (warm_on and k < 1) else m_f
-            warm_on = bool(warm_on and k < 1)
-            val = fma_f32(val, float(cur_m),
-                          stds[..., i] * float(_F32(1) - cur_m))
-            t_cnt += 1
+    vals = [val]
+    for i in range(bound):
+        # round_f32(v * m + s * (1 - m)): the product is exact in float64
+        val = torch.addcmul(b64[..., i], val.double(), a64[..., i]).float()
         vals.append(val)
-    ema_vals = torch.stack(vals, dim=-1)
+    ema_vals = torch.stack(vals, dim=-1).gather(
+        -1, n_upd.to(torch.int64).expand(stds.shape))
+
+    last = torch.where(upd, steps, -1).max()  # the last update's frame
+    new_m = torch.where(last >= 0, cur_m.index_select(
+        -1, last.clamp(min=0).to(torch.int64).reshape(1))[..., 0],
+        state.cur_momentum)
     if adaptive:
-        steps = torch.arange(t_block, device=stds.device)
         thr_f_new = fma_f32(ema_vals * ema_vals, float(_F32(coef_a)),
                             float(_F32(coef_b)))
         use = ema_vals != 0
         # carry forward the last step whose EMA value was nonzero
-        last = torch.cummax(torch.where(use, steps, -1), dim=-1).values
-        src = last.clamp(min=0)
-        thr_f = torch.where(last >= 0, thr_f_new.gather(-1, src),
+        last_use = torch.cummax(torch.where(use, steps, -1), dim=-1).values
+        src = last_use.clamp(min=0).to(torch.int64)
+        thr_f = torch.where(last_use >= 0, thr_f_new.gather(-1, src),
                             state.bi_thr_float[..., None])
-        thr = torch.where(last >= 0, torch.round(thr_f_new).gather(-1, src),
+        thr = torch.where(last_use >= 0,
+                          torch.round(thr_f_new).gather(-1, src),
                           state.bi_threshold[..., None])
     else:
         thr_f = state.bi_thr_float[..., None].expand(stds.shape)
         thr = state.bi_threshold[..., None].expand(stds.shape)
-    new_state = EmaState(ema_vals[..., -1], t_cnt, warm_on, cur_m,
-                         thr[..., -1], thr_f[..., -1])
+    new_state = EmaState(ema_vals[..., -1].clone(),
+                         state.t + n_upd[-1], warm_after[..., -1].clone(),
+                         new_m, thr[..., -1].clone(), thr_f[..., -1].clone())
     # f32 -> u8 saturates, as XLA's conversion does
     return thr.clamp(0, 255).to(torch.uint8), thr_f, ema_vals, new_state
 
@@ -169,22 +230,25 @@ def _ema_threshold_scan(stds: torch.Tensor, timer0: int, state: EmaState,
 def _dst_sum_scales(mask_area: int,
                     sharded_fold: bool = False) -> tuple[float, float]:
     """f32 factors of the diff area ``sum / 255.0 / mask_area * 100.0`` (%
-    of the mask) and of ``dst_sum / MAX_ALLOW_GAP``, as XLA folds them:
-    the f32 reciprocals of 255 and of the area multiplied with 100 in
-    float64 and rounded once; that divided by f32(MAX_ALLOW_GAP) in float64
-    and rounded once. The gap's ``1 - sum * scale`` is then contracted to a
-    fused multiply-add (both matched against jnp for several areas).
+    of the mask) and of ``dst_sum / MAX_ALLOW_GAP``, as XLA folds them in
+    the jitted single-stream step: the divisions become products with the
+    f32 reciprocals, and the constants fold in f32 as ``(1/area * 100)``
+    first, then times ``1/255``; the gap's factor is that times the f32
+    reciprocal of f32(MAX_ALLOW_GAP), rounded once. The gap's ``1 - sum *
+    scale`` is then contracted to a fused multiply-add. (Both held to
+    jitted jnp over many areas in ``tests/test_torch_port_step_graph.py``,
+    among them 64x96, whose factor a float64 product of the reciprocals
+    misses by one bit.)
 
     ``sharded_fold``: the area factor as the JAX package's sharded
     programs fold it (the step under ``shard_map`` and ``jax.vmap``:
-    ``parallel/multistream.py``, ``parallel/temporal.py``), rounded to f32
-    after each of the two products, matched against their packed buffers;
-    their gap factor is the single-stream one. The two folds differ in the
-    last two bits of some diff areas, nowhere else."""
-    f64 = np.float64
+    ``parallel/multistream.py``, ``parallel/temporal.py``), ``1/255`` times
+    ``1/area`` first, then times 100, matched against their packed
+    buffers; their gap factor is the single-stream one. The two folds
+    differ in the last two bits of some diff areas, nowhere else."""
     inv_area = _F32(1 / mask_area) if mask_area else _F32(np.inf)
-    area = _F32(f64(_F32(1 / 255)) * f64(inv_area) * 100.0)
-    gap = _F32(f64(area) / f64(_F32(MAX_ALLOW_GAP)))
+    area = _F32(_F32(1 / 255) * _F32(inv_area * _F32(100)))
+    gap = _F32(area * _F32(1 / _F32(MAX_ALLOW_GAP)))
     if sharded_fold:
         area = _F32(_F32(_F32(1 / 255) * inv_area) * _F32(100))
     return float(area), float(gap)
@@ -199,9 +263,13 @@ def _m3_block_step(gray_hist, sub_hist, dy_hist, ema_state, frames, timer0,
     blocks at once ([S, T, H, W], carries with a leading [S], one timer):
     each stream's results equal its own single-stream step's (the diff
     area to the fold ``sharded_fold`` selects, see ``_dst_sum_scales``).
-    Returns the packed host buffer ([(S,) T, K*5 + N_EXTRAS]), the dst
-    block (for visu) and the new carries."""
+    ``timer0`` is the frame timer, a 0-dim int32 tensor on the frames'
+    device (a host int becomes one). Returns the packed host buffer
+    ([(S,) T, K*5 + N_EXTRAS]), the dst block (for visu), the new carries
+    and, as the JAX step does, the advanced timer ``timer0 + T``: a device
+    carry, so the next block needs no host value of it."""
     r1, c1, r2, c2 = roi
+    timer0 = windows.as_timer(timer0, frames.device)
     diff, new_gray = kernels.window_diff(gray_hist, frames, n, timer0)
     stds, new_sub = windows.window_noise_std(
         sub_hist, frames[..., r1:r2, c1:c2], n, timer0)
@@ -216,7 +284,8 @@ def _m3_block_step(gray_hist, sub_hist, dy_hist, ema_state, frames, timer0,
         hough_threshold=hough_threshold, min_len=min_len, max_gap=max_gap,
         max_points=max_points, max_peaks=max_peaks,
         sharded_fold=sharded_fold)
-    return packed, dst, new_gray, new_sub, new_dy, new_ema
+    new_timer = timer0 + frames.shape[-3]
+    return packed, dst, new_gray, new_sub, new_dy, new_ema, new_timer
 
 
 def median_binarize_close_blocks(diff: torch.Tensor,
@@ -342,11 +411,24 @@ class LineDetector(BaseDetector):
         self._init_device_state()
 
     def reset_device_state(self) -> None:
-        """Reinitialize the device carries (window / sub-ROI / dynamic-mask
-        histories and EMA) and the frame timer. Used by the block loop's
-        failure recovery: detection restarts its warmup while the host-side
-        collector keeps its accumulated tracks."""
-        self._init_device_state()
+        """Reinitialize the device carries in place, as the JAX package
+        does (``metdetpy_tpu/detectors/m3det.py:272-289``): the window /
+        sub-ROI / dynamic-mask histories and the frame timer to zero, the
+        EMA to a fresh one whose threshold starts from the last one the
+        host collected (``bi_threshold``). Used by the block loop's failure
+        recovery: detection restarts its warmup while the host-side
+        collector keeps its accumulated tracks. In place, so that a
+        captured step (``step_graph``) keeps its buffers."""
+        self.timer = 0
+        for carry in (self._gray_hist, self._sub_hist, self._dy_hist,
+                      self._timer_dev):
+            carry.zero_()
+        fresh = EmaState.init(self.noise_momentum, float(self.bi_threshold),
+                              self.device)
+        for cur, new in zip(self._ema.tensors(), fresh.tensors()):
+            cur.copy_(new)
+        self._pending = []
+        self._last = None
 
     def _init_device_state(self) -> None:
         h, w = self.hw
@@ -354,12 +436,17 @@ class LineDetector(BaseDetector):
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        # device carries (the timer too, see _m3_block_step's new_timer;
+        # self.timer is the host shadow for bookkeeping and checkpoints)
         self.timer = 0
+        self._timer_dev = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
         self._gray_hist = zeros(self.n - 1, h, w)
         self._sub_hist = zeros(self.n - 1, r2 - r1, c2 - c1)
         self._dy_hist = zeros(self.n - 1, h, w)
         self._ema = EmaState.init(self.noise_momentum,
                                   float(self.bi_threshold), self.device)
+        self._graph: Optional[StepGraph] = None  # M3Detector on a card
         self._pending: list[np.ndarray] = []
         self._last: Optional[FrameResult] = None
 
@@ -463,14 +550,33 @@ class M3Detector(LineDetector):
         """``block``: [T, H, W] uint8, a numpy array (uploaded here; the
         copy completes before this returns, so the caller may reuse it) or
         a tensor already on the detector's device, which the caller must
-        not write to afterwards (the detector may keep its last frames as a
-        view for the next block's window)."""
+        not write to until the step has read it.
+
+        On a card the block is one replay of the step's CUDA graph
+        (``step_graph.StepGraph``, captured at the first block of each
+        shape, or adopted from a dropped detector of the same carry
+        shapes), whose buffers are this detector's carries; on the CPU the
+        step runs as a function of the carries."""
         if isinstance(block, np.ndarray):
-            block = torch.from_numpy(block).to(self.device)
-        (packed, dst, self._gray_hist, self._sub_hist, self._dy_hist,
-         self._ema) = _m3_block_step(
-            self._gray_hist, self._sub_hist, self._dy_hist, self._ema,
-            block.contiguous(), self.timer, **self._step_static_kwargs())
+            block = torch.from_numpy(block)
+        kw = self._step_static_kwargs()
+        if self.device.type == "cuda":
+            if self._graph is None:
+                # an idle graph of these carry shapes, or a new one; the
+                # detector's carries become its buffers, and it goes back
+                # when the detector is dropped
+                self._graph = StepGraph.acquire(_m3_block_step, [
+                    self._gray_hist, self._sub_hist, self._dy_hist,
+                    self._ema, self._timer_dev])
+                (self._gray_hist, self._sub_hist, self._dy_hist, self._ema,
+                 self._timer_dev) = self._graph.carries
+                weakref.finalize(self, self._graph.release)
+            packed, dst = self._graph(block, **kw)
+        else:
+            (packed, dst, self._gray_hist, self._sub_hist, self._dy_hist,
+             self._ema, self._timer_dev) = _m3_block_step(
+                self._gray_hist, self._sub_hist, self._dy_hist, self._ema,
+                block.to(self.device).contiguous(), self._timer_dev, **kw)
         self.timer += block.shape[0]
         return packed, dst
 
@@ -513,9 +619,12 @@ def _classic_block_step(gray_hist, sub_hist, classic_hist, ema_state, frames,
                         max_peaks):
     """Batched uzanka 4-frame algorithm (reference ClassicDetector,
     MetLib/Detector.py:245-296): |f2-f3| -> binarize -> dilate -> invert ->
-    AND with f0/f1 -> |.| -> binarize -> dilate -> Hough."""
+    AND with f0/f1 -> |.| -> binarize -> dilate -> Hough. ``timer0`` and
+    the last output, the advanced timer, are device carries as in
+    ``_m3_block_step``."""
     r1, c1, r2, c2 = roi
     t_block = frames.shape[0]
+    timer0 = windows.as_timer(timer0, frames.device)
     # the gray window's stats are unused by the 4-frame algorithm; only
     # the history carry advances
     new_gray = (torch.cat([gray_hist, frames], dim=0)[t_block:].clone()
@@ -554,7 +663,8 @@ def _classic_block_step(gray_hist, sub_hist, classic_hist, ema_state, frames,
         torch.float32) * float(_F32(1) / _F32(255))
     packed = _pack(hough.lines, hough.valid, dst_sum, hough.npix,
                    hough.overflow, ema_vals, thr_f, thr)
-    return packed, dst, new_gray, new_sub, seq[t_block:].clone(), new_ema
+    return (packed, dst, new_gray, new_sub, seq[t_block:].clone(), new_ema,
+            timer0 + t_block)
 
 
 class ClassicDetector(LineDetector):
@@ -592,14 +702,18 @@ class ClassicDetector(LineDetector):
                                          dtype=torch.uint8,
                                          device=self.device)
 
+    def reset_device_state(self) -> None:
+        super().reset_device_state()
+        self._classic_hist.zero_()
+
     def process_block_async(self, block) -> Any:
         """``block``: [T, H, W] uint8, as M3Detector.process_block_async."""
         if isinstance(block, np.ndarray):
             block = torch.from_numpy(block).to(self.device)
         (packed, dst, self._gray_hist, self._sub_hist, self._classic_hist,
-         self._ema) = _classic_block_step(
+         self._ema, self._timer_dev) = _classic_block_step(
             self._gray_hist, self._sub_hist, self._classic_hist, self._ema,
-            block.contiguous(), self.timer, n=self.n,
+            block.contiguous(), self._timer_dev, n=self.n,
             roi=self.std_roi, std_interval=self.std_interval,
             momentum=self.noise_momentum, warmup_speed=float(self.n),
             adaptive=self.adaptive, coef_a=self.coef_a, coef_b=self.coef_b,
@@ -677,27 +791,23 @@ def load_state_numpy(detector: LineDetector, state: dict) -> None:
     (frames consumed) -- what the JAX package's M3Detector carries in
     ``_gray_hist``, ``_sub_hist``, ``_dy_hist``, ``_ema`` and
     ``_timer_dev``. For a ClassicDetector it also holds ``classic_hist``
-    ([3, H, W] uint8, the last three frames)."""
-    dev = detector.device
+    ([3, H, W] uint8, the last three frames).
 
-    def u8(a, like):
-        t = torch.from_numpy(np.array(a, np.uint8)).to(dev)
-        if t.shape != like.shape:
-            raise ValueError(f"carry shape {tuple(t.shape)}, expected "
-                             f"{tuple(like.shape)}")
-        return t
+    The carries are loaded in place, so that a captured step keeps its
+    buffers."""
+    def load(dst, a, dtype):
+        src = torch.from_numpy(np.array(a, dtype))
+        if src.shape != dst.shape:
+            raise ValueError(f"carry shape {tuple(src.shape)}, expected "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
 
-    def f32(v):
-        return torch.full((), float(np.float32(v)), dtype=torch.float32,
-                          device=dev)
-
-    detector._gray_hist = u8(state["gray_hist"], detector._gray_hist)
-    detector._sub_hist = u8(state["sub_hist"], detector._sub_hist)
-    detector._dy_hist = u8(state["dy_hist"], detector._dy_hist)
-    if hasattr(detector, "_classic_hist"):
-        detector._classic_hist = u8(state["classic_hist"],
-                                    detector._classic_hist)
-    cur, t, warm, mom, thr, thr_f = (np.asarray(v) for v in state["ema"])
-    detector._ema = EmaState(f32(cur), int(t), bool(warm), _F32(mom),
-                             f32(thr), f32(thr_f))
+    for name in ("gray_hist", "sub_hist", "dy_hist", "classic_hist"):
+        if hasattr(detector, f"_{name}"):
+            load(getattr(detector, f"_{name}"), state[name], np.uint8)
+    for field, v in zip(detector._ema.tensors(), state["ema"]):
+        load(field, np.asarray(v).reshape(field.shape),
+             {torch.float32: np.float32, torch.int32: np.int32,
+              torch.bool: np.bool_}[field.dtype])
     detector.timer = int(np.asarray(state["timer"]))
+    detector._timer_dev.fill_(detector.timer)

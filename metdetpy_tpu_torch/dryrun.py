@@ -64,7 +64,8 @@ TRAIN_HW, TRAIN_NC = (64, 64), 8
 def _m3_args(n, t_block, h, w, roi, max_points, max_peaks, device):
     """The step's carries from stream start (zero histories, a fresh EMA),
     a [t_block, h, w] block of noise from ``default_rng(0)`` and the frame
-    timer 100, on ``device``."""
+    timer 100 (a 0-dim int32, as the JAX entry passes ``jnp.int32(100)``),
+    on ``device``."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     r1, c1, r2, c2 = roi
@@ -77,7 +78,7 @@ def _m3_args(n, t_block, h, w, roi, max_points, max_peaks, device):
             zeros(n - 1, h, w),                       # dynamic-mask history
             EmaState.init(1 - 2 / 60, 5.0, dev),
             torch.from_numpy(frames).to(dev),
-            100)                                      # timer0
+            torch.full((), 100, dtype=torch.int32, device=dev))  # timer0
 
 
 def entry(device: str = "cuda"):

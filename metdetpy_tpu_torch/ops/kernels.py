@@ -47,7 +47,7 @@ _L = ctypes.c_longlong
 # kernel name -> (source file, C entry point, argtypes)
 SOURCES = {
     "window_diff": ("window_diff.cu", "mdt_window_diff",
-                    [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _P]),
+                    [_P, _P, _P, _P, _L, _I, _I, _P, _I, _L, _I, _P]),
     "median_binarize_close": ("median_binarize_close.cu",
                               "mdt_median_binarize_close",
                               [_P, _P, _P, _I, _I, _I, _P]),
@@ -217,11 +217,13 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, device,
 # range. A leading stream axis (S feeds, or S time shards) is the grid's
 # second dimension: one launch for all streams, each stream's history read
 # at its own offset (a view of the previous block's frames lies T frames
-# apart from stream to stream, not n-1), so no history is copied.
+# apart from stream to stream, not n-1), so no history is copied. The
+# frame timer is read from the device (a 0-dim int32, the step's carry) and
+# clamped to n in the kernel, so the launch holds no host value of it.
 
 
 def window_diff_plain(history: torch.Tensor, frames: torch.Tensor, n: int,
-                      timer0: int, timer_step: int = 0
+                      timer0, timer_step: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Spec: ``windows.window_stats(...).diff`` and the new history."""
     stats, new_hist = windows.window_stats(history, frames, n, timer0,
@@ -230,14 +232,16 @@ def window_diff_plain(history: torch.Tensor, frames: torch.Tensor, n: int,
 
 
 def window_diff(history: torch.Tensor, frames: torch.Tensor, n: int,
-                timer0: int, timer_step: int = 0
+                timer0, timer_step: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Trailing-window (max - integer mean) over a [T, H, W] u8 block with
     an [n-1, H, W] u8 history carried in, or over S streams at once:
     frames [S, T, H, W] with history [S, n-1, H, W], stream s starting at
-    frame timer0 + s * timer_step. Returns (diff, new_history) of the
-    frames' and the history's shapes. ``frames`` is contiguous; each
-    stream's history is contiguous, the streams any distance apart.
+    frame timer0 + s * timer_step. ``timer0`` is a 0-dim int32 tensor on
+    the frames' device (the kernel reads it there), or a host int, which
+    becomes one. Returns (diff, new_history) of the frames' and the
+    history's shapes. ``frames`` is contiguous; each stream's history is
+    contiguous, the streams any distance apart.
 
     On the card, where n-1 <= T, new_history is a view of the last n-1
     frames of each stream of ``frames``: the caller must not write to
@@ -262,9 +266,11 @@ def window_diff(history: torch.Tensor, frames: torch.Tensor, n: int,
                          "contiguous")
     if n < 1 or n > 1536:
         raise ValueError(f"window_diff: window n={n} outside [1, 1536]")
-    if timer0 < 0 or timer_step < 0:
+    if timer_step < 0 or (not isinstance(timer0, torch.Tensor)
+                          and timer0 < 0):
         raise ValueError(f"window_diff: timer0={timer0}, timer_step="
                          f"{timer_step}: negative")
+    timer0 = windows.as_timer(timer0, dev)
     diff = torch.empty_like(frames)
     if n - 1 <= t_block:
         new_hist, hist_ptr = frames[..., t_block - (n - 1):, :, :], 0
@@ -272,10 +278,11 @@ def window_diff(history: torch.Tensor, frames: torch.Tensor, n: int,
         new_hist = torch.empty(tuple(history.shape), dtype=torch.uint8,
                                device=dev)
         hist_ptr = new_hist.data_ptr()
-    # len = min(timer + 1 + t, n): timers past n all give n
+    # len = min(timer + 1 + t, n): timers past n all give n (the kernel
+    # clamps timer0 itself)
     _launch("window_diff", frames, h4.data_ptr(), frames.data_ptr(),
             diff.data_ptr(), hist_ptr, h * w, n, t_block,
-            int(min(timer0, n)), n_streams, h4.stride(0),
+            timer0.data_ptr(), n_streams, h4.stride(0),
             int(min(timer_step, n)))
     return diff, new_hist
 

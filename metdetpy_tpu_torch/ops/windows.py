@@ -29,7 +29,22 @@ class WindowStats(NamedTuple):
 # a leading stream axis: frames [S, T, H, W] with history [S, n-1, H, W]
 # (S camera feeds, or S consecutive time shards). The time axis is -3.
 # Stream s starts at frame timer0 + s * timer_step (0 for feeds that share
-# a timer; the shard length for time shards).
+# a timer; the shard length for time shards). ``timer0`` is the frame timer
+# as the block step carries it, a 0-dim int32 tensor on the frames' device,
+# or a host int (eager callers with a host offset).
+
+
+def as_timer(timer0, device: torch.device) -> torch.Tensor:
+    """``timer0`` as a 0-dim int32 tensor on ``device``: a host int becomes
+    a fill on the device (no host->device copy), a tensor on another device
+    is moved."""
+    if isinstance(timer0, torch.Tensor):
+        if timer0.dtype != torch.int32 or timer0.dim() != 0:
+            raise TypeError(f"frame timer: {timer0.dtype} of shape "
+                            f"{tuple(timer0.shape)}, expected a 0-dim "
+                            f"torch.int32")
+        return timer0.to(device)
+    return torch.full((), int(timer0), dtype=torch.int32, device=device)
 
 
 def _seq(history: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
@@ -51,20 +66,20 @@ def _rolling_sum(seq: torch.Tensor, n: int, dtype: torch.dtype
     return out
 
 
-def window_lengths(timer0: int, t_block: int, n: int,
+def window_lengths(timer0, t_block: int, n: int,
                    device: torch.device, n_streams: int = 0,
                    timer_step: int = 0) -> torch.Tensor:
     """Warmup-aware window lengths min(n, timer0 + 1 + t) as int64: [T],
     or [S, T] for ``n_streams`` streams, stream s starting at frame
-    timer0 + s * timer_step."""
+    timer0 + s * timer_step. Built on the device from the timer tensor."""
     timers = torch.arange(t_block, device=device, dtype=torch.int64)
     if n_streams:
         timers = timers + timer_step * torch.arange(
             n_streams, device=device, dtype=torch.int64)[:, None]
-    return torch.clamp(timers + (timer0 + 1), max=n)
+    return torch.clamp(timers + (as_timer(timer0, device) + 1), max=n)
 
 
-def _lengths(frames: torch.Tensor, timer0: int, n: int,
+def _lengths(frames: torch.Tensor, timer0, n: int,
              timer_step: int) -> torch.Tensor:
     """The window lengths of ``frames``' positions: [T] or [S, T]."""
     t_block = frames.shape[-3]
@@ -74,7 +89,7 @@ def _lengths(frames: torch.Tensor, timer0: int, n: int,
 
 
 def window_stats(history: torch.Tensor, frames: torch.Tensor, n: int,
-                 timer0: int, timer_step: int = 0
+                 timer0, timer_step: int = 0
                  ) -> tuple[WindowStats, torch.Tensor]:
     """Trailing-window max/mean for each frame position in a block.
 
@@ -82,7 +97,8 @@ def window_stats(history: torch.Tensor, frames: torch.Tensor, n: int,
       history: [(S,) n-1, H, W] uint8, the n-1 frames preceding this block.
       frames: [(S,) T, H, W] uint8 block of new (exposure-merged) frames.
       n: window size in merged frames.
-      timer0: frames consumed before this block (by stream 0).
+      timer0: frames consumed before this block (by stream 0), a 0-dim
+        int32 tensor or a host int.
       timer_step: see the note above.
 
     Returns:
@@ -101,7 +117,7 @@ def window_stats(history: torch.Tensor, frames: torch.Tensor, n: int,
 
 
 def window_noise_std(history: torch.Tensor, frames: torch.Tensor, n: int,
-                     timer0: int, timer_step: int = 0
+                     timer0, timer_step: int = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-position std of the sub-ROI window around its integer mean.
 

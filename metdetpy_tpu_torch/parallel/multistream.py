@@ -100,8 +100,12 @@ class MultiStreamM3Detector:
         packed = []
         for carry, frames in zip(self._carries,
                                  split_leading(blocks, self.mesh)):
-            out, _dst, *new_carry = _m3_block_step(
-                *carry, frames.contiguous(), self.timer, **self._step_kw)
+            # the frame timer as a device tensor of each block, as the JAX
+            # multistream device_puts one (a fill on the device)
+            timer = torch.full((), self.timer, dtype=torch.int32,
+                               device=frames.device)
+            out, _dst, *new_carry, _new_timer = _m3_block_step(
+                *carry, frames.contiguous(), timer, **self._step_kw)
             carry[:] = new_carry
             packed.append(out)
         self.timer += blocks.shape[1]

@@ -111,8 +111,8 @@ def temporal_window_stats(frames, n: int,
 def init_temporal_carry(mesh: DeviceMesh, *, n: int, h: int, w: int,
                         momentum: float, init_threshold: float):
     """Fresh stream-start carry for :func:`temporal_m3_detect`, on the
-    first shard's device: (EMA state with its host schedule, gray tail,
-    binarized tail, frame offset)."""
+    first shard's device: (EMA state, gray tail, binarized tail, frame
+    offset)."""
     dev0 = canonical(mesh.devices[0])
     zeros = torch.zeros((n - 1, h, w), dtype=torch.uint8, device=dev0)
     return (EmaState.init(momentum, init_threshold, dev0), zeros,
@@ -137,7 +137,7 @@ def temporal_m3_detect(frames, *, n: int, roi: tuple, dy_mask: bool,
     the carry returned by a previous call (``return_carry=True``)
     continues the stream exactly: the previous super-block's gray and
     binarized tails become shard 0's halos, the EMA scan resumes from its
-    carried state (with its host schedule), the timers continue.
+    carried state, the timers continue.
 
     Returns (packed [T, K*5+6] f32, dst [T, H, W] u8) on the first
     shard's device, plus the next carry when ``return_carry``.

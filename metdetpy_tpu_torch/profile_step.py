@@ -14,9 +14,12 @@ at the same inputs, under the JAX tools' labels. Each stage prints one
 JSON line, beside the card's name and power limit (``"device"``):
 
 - ``slope_ms``: the JAX tools' own reading, the slope of chains of calls
-  (their counts and repetitions) each ended by one ``.item()``. A chain of
-  eager calls reads whichever is slower, the host's enqueue of the launches
-  or the device: for the M3 step on an H100 it is the host.
+  (their counts and repetitions) each ended by one ``.item()``. A chain
+  reads whichever is slower, the host's enqueue or the device. The
+  ``step`` stages chain the detector's own dispatch, one replay of the
+  step's CUDA graph a block on a card (``detectors.step_graph``); the
+  other stages chain eager calls, whose enqueue of many small launches
+  may be the slower.
 - ``device_ms``: device time of one call, the sum of its kernels' (and
   device copies') time as ``torch.profiler`` records them over
   ``device_calls`` eager calls. It does not depend on the host's pace.
@@ -24,11 +27,10 @@ JSON line, beside the card's name and power limit (``"device"``):
   after two eager warm-ups, then replayed between CUDA events behind a
   device sleep, each replay after a device copy of the next of 4-5 input
   blocks into the graph's static input (the copies timed alone and taken
-  off). The replayed outputs must equal the eager calls' bit for bit. A
-  graph freezes one block's host control flow: for stages with the EMA
-  scan, the line states the captured block's ``timer0`` and the frames
-  whose EMA updates; the EMA state's host fields do not advance across
-  replays.
+  off). The replayed outputs must equal the eager calls' bit for bit. The
+  step's stages take fixed carries (a copy of the detector's, timer
+  included), so every call and replay computes the same block phase: the
+  line states its ``timer0`` and the frames whose EMA updates.
 - ``launches``: device records (kernels, copies, fills) of one eager call,
   from the profiler; ``kernel_launches`` the four CUDA kernels' own.
 
@@ -70,9 +72,9 @@ SLEEP_CYCLES = 100_000_000  # ~0.06 s of device clock: the host runs ahead
 # the dense tool's Hough settings (profile_dense.py)
 DENSE_THRESHOLD, DENSE_MIN_LEN, DENSE_GAP = 10, 10, 10.0
 NOT_MEASURED = "device_ms, graph_ms and launches not measured: no card"
-GRAPH_NOTE = ("the graph replays the captured block's host schedule (timer0 "
-              "and the EMA's update frames); the EMA state's host fields "
-              "(t, warmup_on) do not advance across replays")
+GRAPH_NOTE = ("the stage's carries are fixed (timer0 and the EMA state "
+              "included), so each replay computes the same block phase "
+              "(timer0 and the EMA's update frames)")
 
 
 @dataclasses.dataclass
@@ -227,9 +229,13 @@ def _scan_info(timer0: int, t: int, kw: dict) -> dict:
 
 
 def _step_stage(name, label, fn, det, kw, blocks, chain=None) -> Stage:
-    carries = (det._gray_hist, det._sub_hist, det._dy_hist, det._ema)
+    """A stage of ``fn`` on a copy of the detector's carries as they stand
+    (the detector's own advance in place as ``chain`` runs it)."""
+    carries = (det._gray_hist.clone(), det._sub_hist.clone(),
+               det._dy_hist.clone(), det._ema.clone())
+    timer = det._timer_dev.clone()
     return Stage(name, label, lambda *a: fn(*a, **kw),
-                 [(*carries, b, det.timer) for b in blocks], chain,
+                 [(*carries, b, timer) for b in blocks], chain,
                  _scan_info(det.timer, blocks[0].shape[0], kw))
 
 

@@ -583,3 +583,66 @@ def test_evaluate_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch,
                          "results"])
     assert "'recall': 1.0" in outs["cuda"][0]
     assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("timer0,timer_step", [(0, 0), (3, 0), (4, 0),
+                                               (100, 0), (2, 3), (0, 9)])
+def test_window_diff_reads_the_timer_on_the_card(cuda_device, timer0,
+                                                 timer_step):
+    """The kernel reads the frame timer from a device int32 and clamps it
+    to n itself: equal to the plain version for timers below, at and past
+    n, with a stream axis whose streams start timer_step frames apart."""
+    rng = np.random.default_rng(SEED + timer0)
+    n, t_block, h, w = 5, 6, 37, 150
+    hist = torch.from_numpy(rng.integers(0, 256, (3, n - 1, h, w),
+                                         dtype=np.uint8)).to(cuda_device)
+    frames = torch.from_numpy(rng.integers(0, 256, (3, t_block, h, w),
+                                           dtype=np.uint8)).to(cuda_device)
+    timer = torch.tensor(timer0, dtype=torch.int32, device=cuda_device)
+    got = kernels.window_diff(hist, frames, n, timer, timer_step)
+    want = kernels.window_diff_plain(hist, frames, n, timer, timer_step)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 12])
+def test_step_graph_on_card_equals_cpu_step(cuda_device, n):
+    """M3Detector's graph on the card, block after block from stream
+    start (the history within and beyond the 8-frame block), equals the
+    port's functional step on the CPU: packed, dst and every carry; each
+    replay adds its kernels to the launch counts."""
+    from metdetpy_tpu_torch.detectors import m3det, step_graph
+    from metdetpy_tpu_torch.log import BaseMetLog
+    cfg = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json")).detector.cfg
+    h, w, t = 64, 96, 8
+    frames = generate_meteor_video(
+        width=w, height=h, fps=25.0, duration_sec=7 * t / 25.0,
+        meteors=[SynthMeteor(start_sec=0.6, end_sec=1.6, pt1=(70, 12),
+                             pt2=(20, 50))], n_stars=12, noise_sigma=2.5)
+    dets = {d: m3det.M3Detector((n + 0.5) / 25.0, 25.0,
+                                np.ones((h, w), np.uint8), 4,
+                                cfg, BaseMetLog(), max_points=1024,
+                                device=d) for d in ("cuda", "cpu")}
+    step_graph.clear_idle()
+    n_caps = len(step_graph.CAPTURES)
+    for b in range(7):
+        block = frames[b * t:(b + 1) * t]
+        kernels.reset_launch_counts()
+        got = dets["cuda"].process_block_async(block)
+        torch.cuda.synchronize()
+        if b:
+            assert kernels.LAUNCHES == step_graph.CAPTURES[-1]["launches"]
+        want = dets["cpu"].process_block_async(block)
+        for a, e in zip(got, want):
+            assert torch.equal(a.cpu(), e)
+        for name in ("_gray_hist", "_sub_hist", "_dy_hist", "_timer_dev"):
+            assert torch.equal(getattr(dets["cuda"], name).cpu(),
+                               getattr(dets["cpu"], name)), name
+        for a, e in zip(dets["cuda"]._ema.tensors(),
+                        dets["cpu"]._ema.tensors()):
+            assert torch.equal(a.cpu(), e)
+    assert len(step_graph.CAPTURES) == n_caps + 1

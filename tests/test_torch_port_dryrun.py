@@ -87,7 +87,8 @@ def test_entry_matches_jax_entry():
     for f in ("cur_value", "bi_threshold", "bi_thr_float"):
         np.testing.assert_array_equal(getattr(got[5], f).numpy(),
                                       np.asarray(getattr(want[5], f)))
-    assert got[5].t == int(want[5].t)
+    assert int(got[5].t) == int(want[5].t)
+    assert int(got[6]) == int(want[6]) == 116  # the advanced timer
 
 
 # -- program 1: the stream step ----------------------------------------------

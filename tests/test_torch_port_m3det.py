@@ -106,9 +106,10 @@ def test_ema_threshold_scan_matches_jax():
             np.testing.assert_array_equal(tthr.numpy(), np.asarray(jthr))
             np.testing.assert_array_equal(tthr_f.numpy(), np.asarray(jthr_f))
             np.testing.assert_array_equal(tvals.numpy(), np.asarray(jvals))
-            assert tstate.t == int(jstate.t)
-            assert tstate.warmup_on == bool(jstate.warmup_on)
-            assert tstate.cur_momentum == np.asarray(jstate.cur_momentum)
+            assert int(tstate.t) == int(jstate.t)
+            assert bool(tstate.warmup_on) == bool(jstate.warmup_on)
+            np.testing.assert_array_equal(tstate.cur_momentum.numpy(),
+                                          np.asarray(jstate.cur_momentum))
 
 
 def test_threshold_saturates_like_xla():

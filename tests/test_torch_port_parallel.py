@@ -96,11 +96,10 @@ def test_ema_scan_stream_axis_equals_single_streams():
                                            adaptive=adaptive, **kw)
             for g, w in zip(got[:3], want[:3]):
                 assert torch.equal(g[i], w)
-            for f in ("cur_value", "bi_threshold", "bi_thr_float"):
+            for f in ("cur_value", "bi_threshold", "bi_thr_float", "t",
+                      "warmup_on", "cur_momentum"):
                 assert torch.equal(getattr(got[3], f)[i],
                                    getattr(want[3], f))
-            assert (got[3].t, got[3].warmup_on, got[3].cur_momentum) == (
-                want[3].t, want[3].warmup_on, want[3].cur_momentum)
 
 
 # -- the M3 step and the multi-stream detector -------------------------------
@@ -158,10 +157,10 @@ def test_block_step_streams_equal_single_streams(streams):
                for _ in range(s)]
     for b, fold in ((0, True), (16, False)):
         block = t(streams[:s, b:b + 16])
-        packed, _, *batched = tm3._m3_block_step(
+        packed, _, *batched, _ = tm3._m3_block_step(
             *batched, block, b, **kw, sharded_fold=fold)
         for i in range(s):
-            want, _, *singles[i] = tm3._m3_block_step(
+            want, _, *singles[i], _ = tm3._m3_block_step(
                 *singles[i], block[i], b, **kw, sharded_fold=True)
             if fold:
                 assert torch.equal(packed[i], want)

@@ -282,8 +282,8 @@ def test_same_bits_tells_apart_what_equality_does_not():
     assert not profile_step._same_bits([a], [a.double()])
     ema = tm3.EmaState.init(0.9, 5.0, CPU)
     leaves = profile_step._leaves((a, [ema, 3], None))
-    assert len(leaves) == 4 and leaves[0] is a
-    assert leaves[1] is ema.cur_value
+    assert len(leaves) == 7 and leaves[0] is a
+    assert leaves[1:] == ema.tensors()
 
 
 EXPECTED = {"block": ["step", "window_diff", "median_binarize_close",
