@@ -46,7 +46,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    frames equal, points within 2 px, scores within 0.03).
 7. Classic: ``ClassicDetector`` through ``detect_video`` at 960x540 (its
    point budget there is 64,800) with ``hough_vote`` and ``walk_pick``
-   launched, and on a small clip the card's MDRF equal to the CPU's.
+   launched and one capture of ``_classic_block_step``'s CUDA graph
+   (``detectors/step_graph.py``); a detector that adopts that graph: a
+   block's replay in device ms, the host ms a block of the replay and of
+   the eager step; on a small clip the card's MDRF (through the graph)
+   equal to the CPU's.
 8. Device feed at camera size: ``m3det_normal`` (recheck off) on a gray
    1920x1080, 25 fps clip of 256 frames with one meteor, detected at
    960x540: once with the preprocess on the device (forced: raw blocks
@@ -91,12 +95,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    m3det_normal's detector as shipped (n = 25) over 8 gray 960x540 streams
    of 256 frames in 64-frame blocks (BASELINE.json configuration 5 at its
    analysis resolution; meteors in three streams at different times), the
-   8 streams' shards laid on the one card (``shared_mesh``): one
-   window_diff and one median_binarize_close launch a block for all
-   streams, 64 of each Hough kernel; each stream's packed rows equal its
-   own M3 step's bit for bit (the sharded programs' fold of the diff area)
-   and its records its own M3Detector run's; aggregate frames/s and host
-   ms a block.
+   8 streams' shards laid on the one card (``shared_mesh``), each block one
+   replay of the step's CUDA graph: one capture, launches of two warm-ups
+   plus the replays (a replay: one window_diff and one
+   median_binarize_close for all streams, 64 of each Hough kernel); a
+   second run in the process adopts the graph (no capture, replays only,
+   the same records); each stream's packed rows equal its own M3 step's
+   bit for bit (the sharded programs' fold of the diff area) and its
+   records its own M3Detector run's; aggregate frames/s of both runs, the
+   capture's seconds and pool bytes, host ms a block, a replay's device
+   ms, the idle share of a profiled block. With 2 or more cards, also
+   ``build_mesh(k)`` (k = 2, 4 or 8), a graph a card, held to the shared
+   mesh bit for bit.
 14. Multistream dldet: dldet.json's detector over 4 colour 960x544
    streams, 2 blocks of 64 merged frames, against each stream's own
    MLDetector run (boxes within 2 px, scores within 0.03).
@@ -892,28 +902,65 @@ def phase_dldet(card: str) -> None:
 
 
 def phase_classic(card: str) -> None:
-    """ClassicDetector through detect_video: on the card at 960x540, and
+    """ClassicDetector through detect_video on the card at 960x540, each
+    block one replay of ``_classic_block_step``'s CUDA graph; a replay's
+    device ms and the host ms a block of the graph and of the eager step;
     the card's MDRF against the CPU's on a small clip."""
     from metdetpy_tpu_torch.api import detect_video
+    from metdetpy_tpu_torch.detectors import step_graph
+    from metdetpy_tpu_torch.detectors.m3det import (ClassicDetector,
+                                                    _classic_block_step)
+    from metdetpy_tpu_torch.log import BaseMetLog
     from metdetpy_tpu_torch.ops import kernels as K
+    from metdetpy_tpu_torch.utils import get_num_class
     frames, _, _ = synth_clip(W, H, 128 / FPS, 1.5, 3.5, color=False)
+    cfg = preset_cfg("m3det_normal", detector="ClassicDetector",
+                     recheck=False)
+    step_graph.clear_idle()
+    n_caps = len(step_graph.CAPTURES)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    mdrf = detect_video(frames, None,
-                        preset_cfg("m3det_normal", detector="ClassicDetector",
-                                   recheck=False),
-                        work_mode="backend", device="cuda")
+    mdrf = detect_video(frames, None, cfg, work_mode="backend",
+                        device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     if launches["hough_vote"] <= 0 or launches["walk_pick"] <= 0:
         fail(f"ClassicDetector did not launch the Hough kernels: {launches}")
+    caps = [c for c in step_graph.CAPTURES[n_caps:]
+            if c["step"] == "_classic_block_step"]
+    if len(caps) != 1:
+        fail(f"ClassicDetector: {len(caps)} captures of its step")
+    gc.collect()
+    # a block on the card and on the host, by a detector that adopts the
+    # run's graph; the eager step on the same carries beside it
+    det = ClassicDetector(cfg.detector.window_sec, FPS,
+                          np.ones((H, W), np.uint8), get_num_class(),
+                          cfg.detector.cfg, BaseMetLog(), device="cuda")
+    blk = torch.from_numpy(frames[:T_BLOCK]).cuda()
+    det.process_block_async(blk)
+    if len(step_graph.CAPTURES) != n_caps + 1:
+        fail("ClassicDetector: a second detector did not adopt the graph")
+    replay_ms = cuda_ms(lambda: det.process_block_async(blk), 5)
+    graph_host_ms = _host_ms(lambda: det.process_block_async(blk), 10)
+    eager_host_ms = _host_ms(lambda: _classic_block_step(
+        det._gray_hist, det._sub_hist, det._classic_hist, det._ema, blk,
+        det._timer_dev, **det._step_static_kwargs()), 5)
+    del det, blk
+    cap = caps[0]
     print(f"classic: {frames.shape[0]} frames {W}x{H} (point budget "
-          f"{min(max(8192, W * H // 8), 1 << 16)}) in {wall:.3f} s on {card};"
-          f" {len(mdrf.results)} record(s); launches {launches}", flush=True)
+          f"{min(max(8192, W * H // 8), 1 << 16)}) in {wall:.3f} s on {card},"
+          f" its step's capture {cap['seconds']:.3f} s after warm-ups of "
+          f"{cap['warmup_seconds']:.3f} s, pool {cap['pool_bytes']} bytes, "
+          f"launches a replay {cap['launches']}; {len(mdrf.results)} "
+          f"record(s); launches {launches}; a block on the card "
+          f"{replay_ms:.4f} ms (replay with its input copy and output "
+          f"clones); host ms a block {graph_host_ms:.4f} (graph) against "
+          f"{eager_host_ms:.4f} (eager step)", flush=True)
     small, _, _ = synth_clip(256, 144, 6.5, 2.4, 4.4, color=False,
                              n_stars=40, seed=7)
     got = {}
+    n_caps = len(step_graph.CAPTURES)
     for dev in ("cuda", "cpu"):
         mdrf = detect_video(small, None, preset_cfg(
             "m3det_normal", None, recheck=False, detector="ClassicDetector"),
@@ -924,8 +971,14 @@ def phase_classic(card: str) -> None:
              f"{got['cuda']} vs {got['cpu']}")
     if not got["cuda"]:
         fail("ClassicDetector found no record on the small clip")
-    print(f"classic card vs cpu: {len(got['cuda'])} MDRF record(s) equal",
-          flush=True)
+    keys = [c["key"][1] for c in step_graph.CAPTURES[n_caps:]
+            if c["step"] == "_classic_block_step"]
+    if not keys:
+        fail("ClassicDetector: the small clip's run captured no graph")
+    print(f"classic card vs cpu: {len(got['cuda'])} MDRF record(s) equal; "
+          f"the card's run through its step's graph (captured for blocks "
+          f"{keys})", flush=True)
+    step_graph.clear_idle()
 
 
 @contextlib.contextmanager
@@ -1509,13 +1562,26 @@ def _device_busy(prof) -> tuple[float, list]:
     return sum(r[0] for r in rows), [[k, round(t, 3)] for t, k in rows[:5]]
 
 
+def _multistream_packed(det, streams: np.ndarray) -> np.ndarray:
+    """[S, frames, ...] packed rows of ``streams`` through ``det``, block by
+    block."""
+    packed = []
+    for pos in range(0, streams.shape[1], T_BLOCK):
+        handle = det.process_blocks_async(streams[:, pos:pos + T_BLOCK])
+        packed.append(np.concatenate([p.cpu().numpy() for p in handle]))
+    return np.concatenate(packed, axis=1)
+
+
 def phase_multistream(card: str) -> dict:
     """m3det_normal's detector (n = 25) over 8 gray 960x540 streams of 256
     frames in 64-frame blocks, BASELINE.json configuration 5 at its
-    analysis resolution; returns the launch counts of the run."""
+    analysis resolution, each block one replay of the step's CUDA graph a
+    device group; returns the launch counts of the first run (two warm-ups
+    and the replays)."""
+    from metdetpy_tpu_torch.detectors import step_graph
     from metdetpy_tpu_torch.log import BaseMetLog
     from metdetpy_tpu_torch.ops import kernels as K
-    from metdetpy_tpu_torch.parallel.mesh import shared_mesh
+    from metdetpy_tpu_torch.parallel.mesh import build_mesh, shared_mesh
     from metdetpy_tpu_torch.parallel.multistream import (
         MultiStreamM3Detector, detect_multi_stream)
     from metdetpy_tpu_torch.utils import get_num_class
@@ -1523,23 +1589,46 @@ def phase_multistream(card: str) -> dict:
     cfg = preset_cfg("m3det_normal", recheck=False)
     logger = BaseMetLog()
     n_blocks = STREAM_FRAMES // T_BLOCK
+    chunks = N_STREAMS * T_BLOCK // FRAME_CHUNK
     mesh = shared_mesh(N_STREAMS, "cuda")
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    records = detect_multi_stream(list(streams), cfg, _rt(W, H, FPS),
-                                  logger, mesh=mesh, block_frames=T_BLOCK,
-                                  device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    want = {"window_diff": n_blocks, "median_binarize_close": n_blocks,
-            "hough_vote": n_blocks * N_STREAMS * T_BLOCK // FRAME_CHUNK,
-            "walk_pick": n_blocks * N_STREAMS * T_BLOCK // FRAME_CHUNK}
-    if launches != want:
-        fail(f"multistream: launches {launches}, expected {want} (one "
-             "window_diff and one median_binarize_close a block for all "
-             "streams)")
-    # host time of the dispatch and wall time of a block, in a second run
+    step_graph.clear_idle()  # a fresh process holds no graph of the step
+    n_caps = len(step_graph.CAPTURES)
+
+    def run(dmesh):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = detect_multi_stream(list(streams), cfg, _rt(W, H, FPS),
+                                      logger, mesh=dmesh,
+                                      block_frames=T_BLOCK, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gc.collect()  # the detector gives its graphs back
+        return ([[r.to_dict() for r in rs] for rs in records],
+                dict(K.LAUNCHES), wall)
+
+    records, launches, wall = run(mesh)
+    caps = step_graph.CAPTURES[n_caps:]
+    # the first run's launches: two eager warm-ups before the capture, then
+    # one replay a block (each replay adds the launches it holds)
+    want = {"window_diff": 2 + n_blocks, "median_binarize_close": 2 + n_blocks,
+            "hough_vote": (2 + n_blocks) * chunks,
+            "walk_pick": (2 + n_blocks) * chunks}
+    if len(caps) != 1 or launches != want:
+        fail(f"multistream: {len(caps)} captures, launches {launches}, "
+             f"expected one capture and {want} (one window_diff and one "
+             "median_binarize_close a block for all streams)")
+    # a second run in the process adopts the graph: no capture, replays only
+    records2, launches2, wall2 = run(mesh)
+    want2 = {k: v // (2 + n_blocks) * n_blocks for k, v in want.items()}
+    if len(step_graph.CAPTURES) != n_caps + 1 or launches2 != want2 or \
+            records2 != records:
+        fail(f"multistream: a second detect_multi_stream made "
+             f"{len(step_graph.CAPTURES) - n_caps - 1} captures, launches "
+             f"{launches2} (expected {want2}), records equal: "
+             f"{records2 == records}")
+
+    # host time of the dispatch and wall time of a block, in a third run
     det = MultiStreamM3Detector(
         N_STREAMS, cfg.detector.window_sec, FPS, np.ones((H, W), np.uint8),
         get_num_class(), cfg.detector.cfg, logger, mesh=mesh,
@@ -1571,6 +1660,12 @@ def phase_multistream(card: str) -> dict:
     upload.to("cuda")
     torch.cuda.synchronize()
     upload_ms = (time.perf_counter() - t1) * 1e3
+    # a block on the card: the replay with its device-to-device input copy
+    # and output clones
+    on_card = upload.cuda()
+    replay_ms = cuda_ms(lambda: det.process_blocks_async(on_card), 5)
+    del det, on_card
+    gc.collect()
     found = []
     for s in range(N_STREAMS):
         ref_packed, ref_records = _m3_stream_reference(streams[s], cfg,
@@ -1579,29 +1674,68 @@ def phase_multistream(card: str) -> dict:
             n_bad = int((packed[s] != ref_packed).sum())
             fail(f"multistream: stream {s}'s packed rows differ from its "
                  f"own M3 step's in {n_bad} values")
-        got = [r.to_dict() for r in records[s]]
-        if got != [r.to_dict() for r in ref_records]:
+        if records[s] != [r.to_dict() for r in ref_records]:
             fail(f"multistream: stream {s}'s records differ from its own "
-                 f"M3Detector run: {got} vs "
+                 f"M3Detector run: {records[s]} vs "
                  f"{[r.to_dict() for r in ref_records]}")
-        if any(t.category == "METEOR" for r in records[s] for t in r.target):
+        if any(t["category"] == "METEOR" for r in records[s]
+               for t in r["target"]):
             found.append(s)
     if not set(meteor_streams) <= set(found):
         fail(f"multistream: METEORs in streams {found}, the meteors are in "
              f"{meteor_streams}")
+    cards = ""
+    if torch.cuda.device_count() >= 2:
+        # a card a shard group: one graph a card, held to the shared mesh
+        k = max(c for c in (2, 4, 8) if c <= torch.cuda.device_count())
+        n_caps_k = len(step_graph.CAPTURES)
+        det = MultiStreamM3Detector(
+            N_STREAMS, cfg.detector.window_sec, FPS,
+            np.ones((H, W), np.uint8), get_num_class(), cfg.detector.cfg,
+            logger, mesh=build_mesh(k), max_points=MAX_POINTS,
+            max_peaks=MAX_PEAKS, device="cuda")
+        devs = [str(g.carries[-1].device) for g, _, _ in det._graphs]
+        if devs != [f"cuda:{i}" for i in range(k)]:
+            fail(f"multistream on {k} cards: graphs on {devs}")
+        got = _multistream_packed(det, streams)
+        del det
+        gc.collect()
+        keys = [c["key"][2] for c in step_graph.CAPTURES[n_caps_k:]]
+        if sorted(keys) != devs or not np.array_equal(got, packed):
+            fail(f"multistream on {k} cards: captures on {keys}, packed "
+                 f"rows equal to the shared mesh: "
+                 f"{np.array_equal(got, packed)}")
+        records_k, _, wall_k = run(build_mesh(k))
+        if records_k != records:
+            fail(f"multistream on {k} cards: records differ from the "
+                 "shared mesh")
+        cards = (f"; on {k} cards (a graph each, captured on {keys}): "
+                 f"packed rows and records equal to the shared mesh, "
+                 f"{STREAM_FRAMES * N_STREAMS / wall_k:.2f} frames/s "
+                 f"aggregate adopting the graphs")
+    cap = caps[0]
     n = N_STREAMS * STREAM_FRAMES
     print(f"multistream M3 ({N_STREAMS} streams {W}x{H}, {STREAM_FRAMES} "
-          f"frames each, {n_blocks} blocks of {T_BLOCK}): {n / wall:.2f} "
-          f"frames/s aggregate ({wall:.3f} s) on {card}; dispatch "
+          f"frames each, {n_blocks} blocks of {T_BLOCK}, one graph replay a "
+          f"block): {n / wall2:.2f} frames/s aggregate ({wall2:.3f} s) on "
+          f"{card} in a second run that adopts the graph ({n / wall:.2f} "
+          f"frames/s, {wall:.3f} s, in the first, whose capture took "
+          f"{cap['seconds']:.3f} s after warm-ups of "
+          f"{cap['warmup_seconds']:.3f} s, pool {cap['pool_bytes']} bytes, "
+          f"launches a replay {cap['launches']}); dispatch "
           f"{1e3 * np.mean(host_s[1:]):.2f} host ms a block, "
           f"{1e3 * np.mean(block_s[1:]):.2f} ms a block with the collect "
           f"(first block {1e3 * block_s[0]:.2f} ms; the {upload.nbytes} B "
-          f"block's pageable upload alone {upload_ms:.2f} ms); profiled "
-          f"block: {prof_ms:.2f} ms wall, device busy {busy_ms:.2f} ms, idle "
-          f"share {1 - busy_ms / prof_ms:.4f}, top device ops {top}; "
-          f"launches {launches}; "
-          f"METEOR in streams {found}; every stream's packed rows and "
-          f"records equal its own M3Detector run", flush=True)
+          f"block's pageable upload alone {upload_ms:.2f} ms); a replay on "
+          f"the card {replay_ms:.2f} ms; profiled block: {prof_ms:.2f} ms "
+          f"wall, device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / prof_ms:.4f} (a replay against the mean block "
+          f"with the collect: {1 - replay_ms / np.mean(block_s[1:]) / 1e3:.4f}"
+          f"), top device ops {top}; launches "
+          f"{launches} (second run {launches2}); METEOR in streams {found}; "
+          f"every stream's packed rows and records equal its own M3Detector "
+          f"run{cards}", flush=True)
+    step_graph.clear_idle()  # the graph's pool, for the later phases
     return launches
 
 

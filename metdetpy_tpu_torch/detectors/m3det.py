@@ -16,9 +16,10 @@ package carries them: the EMA's update schedule, update count, warm-up
 flag and momentum are computed on the device from the timer tensor (in
 f32, with the fused multiply-adds XLA's CPU backend forms), so one
 captured program of the step serves every block. On a card,
-``M3Detector`` dispatches each block as one replay of a CUDA graph of the
-step (``step_graph.StepGraph``), the counterpart of the JAX package's
-``jax.jit`` on ``_m3_block_step``.
+``M3Detector`` and ``ClassicDetector`` dispatch each block as one replay
+of a CUDA graph of their step (``step_graph.StepGraph``), the counterpart
+of the JAX package's ``jax.jit`` on ``_m3_block_step`` and
+``_classic_block_step``.
 """
 
 from __future__ import annotations
@@ -446,11 +447,27 @@ class LineDetector(BaseDetector):
         self._dy_hist = zeros(self.n - 1, h, w)
         self._ema = EmaState.init(self.noise_momentum,
                                   float(self.bi_threshold), self.device)
-        self._graph: Optional[StepGraph] = None  # M3Detector on a card
+        self._graph: Optional[StepGraph] = None  # the step's, on a card
         self._pending: list[np.ndarray] = []
         self._last: Optional[FrameResult] = None
 
     # -- async block API -------------------------------------------------
+
+    def _replay(self, step, carries: tuple, block: torch.Tensor,
+                static: dict):
+        """One block as one replay of ``step``'s CUDA graph
+        (``step_graph.StepGraph``), whose buffers are this detector's
+        carries, the attributes named in ``carries`` in the step's order;
+        returns (packed, dst). At the first block an idle graph of these
+        carry shapes is adopted, or a new one made; it goes back when the
+        detector is dropped."""
+        if self._graph is None:
+            self._graph = StepGraph.acquire(
+                step, [getattr(self, name) for name in carries])
+            for name, buf in zip(carries, self._graph.carries):
+                setattr(self, name, buf)
+            weakref.finalize(self, self._graph.release)
+        return self._graph(block, **static)
 
     def process_block_async(self, block) -> Any:
         """Dispatch one block; returns an opaque handle for ``collect``.
@@ -561,17 +578,9 @@ class M3Detector(LineDetector):
             block = torch.from_numpy(block)
         kw = self._step_static_kwargs()
         if self.device.type == "cuda":
-            if self._graph is None:
-                # an idle graph of these carry shapes, or a new one; the
-                # detector's carries become its buffers, and it goes back
-                # when the detector is dropped
-                self._graph = StepGraph.acquire(_m3_block_step, [
-                    self._gray_hist, self._sub_hist, self._dy_hist,
-                    self._ema, self._timer_dev])
-                (self._gray_hist, self._sub_hist, self._dy_hist, self._ema,
-                 self._timer_dev) = self._graph.carries
-                weakref.finalize(self, self._graph.release)
-            packed, dst = self._graph(block, **kw)
+            packed, dst = self._replay(_m3_block_step, (
+                "_gray_hist", "_sub_hist", "_dy_hist", "_ema", "_timer_dev"),
+                block, kw)
         else:
             (packed, dst, self._gray_hist, self._sub_hist, self._dy_hist,
              self._ema, self._timer_dev) = _m3_block_step(
@@ -706,21 +715,34 @@ class ClassicDetector(LineDetector):
         super().reset_device_state()
         self._classic_hist.zero_()
 
-    def process_block_async(self, block) -> Any:
-        """``block``: [T, H, W] uint8, as M3Detector.process_block_async."""
-        if isinstance(block, np.ndarray):
-            block = torch.from_numpy(block).to(self.device)
-        (packed, dst, self._gray_hist, self._sub_hist, self._classic_hist,
-         self._ema, self._timer_dev) = _classic_block_step(
-            self._gray_hist, self._sub_hist, self._classic_hist, self._ema,
-            block.contiguous(), self._timer_dev, n=self.n,
-            roi=self.std_roi, std_interval=self.std_interval,
+    def _step_static_kwargs(self) -> dict:
+        return dict(
+            n=self.n, roi=self.std_roi, std_interval=self.std_interval,
             momentum=self.noise_momentum, warmup_speed=float(self.n),
             adaptive=self.adaptive, coef_a=self.coef_a, coef_b=self.coef_b,
             hough_threshold=int(self.hough_cfg.threshold),
             min_len=int(self.hough_cfg.min_len),
             max_gap=float(self.hough_cfg.max_gap),
             max_points=self.max_points, max_peaks=self.max_peaks)
+
+    def process_block_async(self, block) -> Any:
+        """``block``: [T, H, W] uint8, as M3Detector.process_block_async:
+        on a card one replay of ``_classic_block_step``'s CUDA graph over
+        this detector's carries, on the CPU the step as a function."""
+        if isinstance(block, np.ndarray):
+            block = torch.from_numpy(block)
+        kw = self._step_static_kwargs()
+        if self.device.type == "cuda":
+            packed, dst = self._replay(_classic_block_step, (
+                "_gray_hist", "_sub_hist", "_classic_hist", "_ema",
+                "_timer_dev"), block, kw)
+        else:
+            (packed, dst, self._gray_hist, self._sub_hist,
+             self._classic_hist, self._ema,
+             self._timer_dev) = _classic_block_step(
+                self._gray_hist, self._sub_hist, self._classic_hist,
+                self._ema, block.to(self.device).contiguous(),
+                self._timer_dev, **kw)
         warmup_start = self.timer
         self.timer += block.shape[0]
         return packed, dst, warmup_start

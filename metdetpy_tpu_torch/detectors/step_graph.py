@@ -1,7 +1,9 @@
-"""The M3 block step as one device program a block: a CUDA graph of it.
+"""A block step as one device program a block: a CUDA graph of it.
 
 Counterpart of the JAX package's ``jax.jit(..., static_argnames=...)`` on
-``metdetpy_tpu/detectors/m3det.py::_m3_block_step``: there the step is one
+its block steps (``metdetpy_tpu/detectors/m3det.py::_m3_block_step``, the
+same under ``shard_map(vmap(...))`` for S feeds in
+``parallel/multistream.py``, and ``_classic_block_step``): there a step is one
 compiled executable a shape, its carries (window, sub-ROI and
 dynamic-mask histories, the EMA state and the frame timer) stay on the
 device, and a block costs one dispatch. Here ``StepGraph`` captures the
@@ -29,6 +31,13 @@ Protocol:
   device tables, such as the peak find's cut ladder and the trig tables,
   and bind the kernels outside the capture, and the detector's state
   advances by exactly one step a block), then captures.
+- The warm-ups, the capture and every replay run with the carries' card
+  as the current device, whichever card the caller made current, and the
+  capture on a stream of that card: the kernels' stream and a replay's
+  stream are each the current device's, and ``torch.cuda.graph``'s
+  default capture stream is made once a process on the card current at
+  its first capture, so a graph over carries on another card would miss
+  its work or fail to capture.
 - On the CPU there is nothing to capture: a call runs the body directly,
   with the same buffers and copies (the tests hold this protocol to the
   functional step).
@@ -59,9 +68,10 @@ import torch
 
 from ..ops import kernels
 
-# every capture of this process, oldest first: key, the two warm-ups'
-# seconds, the capture's seconds, the growth of the card's reserved memory
-# over the capture (the graph's pool), the kernel launches of a replay
+# every capture of this process, oldest first: the step's name, key, the
+# two warm-ups' seconds, the capture's seconds, the growth of the card's
+# reserved memory over the capture (the graph's pool), the kernel launches
+# of a replay
 CAPTURES: list[dict] = []
 
 
@@ -160,19 +170,24 @@ class StepGraph:
         if entry is None:
             entry = self._entries[key] = _Entry(torch.empty(
                 tuple(block.shape), dtype=torch.uint8, device=dev))
-        entry.frames.copy_(block)
         if dev.type != "cuda":
+            entry.frames.copy_(block)
             packed, dst = self.body(entry.frames, static)
-        else:
+            return packed.clone(), dst.clone()
+        # on the carries' card, whichever card is current (module docstring)
+        with torch.cuda.device(dev):
+            entry.frames.copy_(block)
             if entry.graph is None:
                 self._capture(entry, key, static)
             entry.graph.replay()
             for name, n in entry.launches.items():
                 kernels.LAUNCHES[name] += n
             packed, dst = entry.out
-        return packed.clone(), dst.clone()
+            return packed.clone(), dst.clone()
 
     def _capture(self, entry: _Entry, key, static: dict) -> None:
+        """Two eager warm-ups, then the capture; on the frames' card, which
+        the caller has made the current device."""
         dev = entry.frames.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -196,8 +211,12 @@ class StepGraph:
             # "thread_local": the loader's uploader thread (its own stream)
             # and the exporter's recheck may use the card while this thread
             # captures; only this thread's work on the capture stream is
-            # captured, and only its allocations go to the graph's pool
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            # captured, and only its allocations go to the graph's pool.
+            # The capture stream is the warm-ups' stream on this card:
+            # torch.cuda.graph's default one is made once a process, on the
+            # card current at the first capture
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 out = self.body(entry.frames, static)
         except Exception as exc:
             reached = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
@@ -211,7 +230,8 @@ class StepGraph:
                 kernels.LAUNCHES[k] -= n  # captured, not run
         entry.graph, entry.out, entry.launches = graph, tuple(out), launched
         CAPTURES.append({
-            "key": key, "warmup_seconds": warmup_s,
+            "step": self.step.__name__, "key": key,
+            "warmup_seconds": warmup_s,
             "seconds": time.perf_counter() - t0,
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
             "launches": dict(launched)})

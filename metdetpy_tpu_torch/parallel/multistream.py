@@ -3,13 +3,16 @@
 Counterpart of ``metdetpy_tpu/parallel/multistream.py`` (BASELINE.json
 configuration 5, "8 concurrent camera feeds, vectorized Hough voting +
 recheck"). The JAX package maps ``_m3_block_step`` over the streams with
-``jax.vmap`` inside a ``shard_map``; here the streams of each device are a
-leading axis of one ``_m3_block_step`` call: one window_diff and one
-median_binarize_close launch per block and device for all its streams,
-and S*T/8 launches of the Hough pair (8-frame chunks of all frames). The
-window / EMA / dynamic-mask carries stay on the devices, one per stream;
-the per-stream collectors stay on the host and read one copy of the
-packed buffers per device.
+``jax.vmap`` inside a ``shard_map`` under one ``jax.jit``; here the
+streams of each device are a leading axis of one ``_m3_block_step``: one
+window_diff and one median_binarize_close launch per block and device for
+all its streams, and S*T/8 launches of the Hough pair (8-frame chunks of
+all frames). On a card that step is one CUDA graph per device
+(``detectors.step_graph.StepGraph``), replayed once a block; on the CPU
+the same ``StepGraph`` runs it as a function. The window / EMA /
+dynamic-mask carries (one per stream) and the frame timer stay on the
+devices as the graphs' buffers; the per-stream collectors stay on the
+host and read one copy of the packed buffers per device.
 
 The reference's only concurrency is intra-process threads
 (SURVEY.md §2.4); this is its scale-out replacement.
@@ -17,6 +20,7 @@ The reference's only concurrency is intra-process threads
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -26,10 +30,11 @@ from ..detectors.base import FrameResult
 from ..detectors.m3det import (ABS_SENSITIVITY, NUM_LINES_TOOMUCH,
                                SENSITIVITY_COEF, EmaState, _m3_block_step,
                                _unpack, select_subarea)
+from ..detectors.step_graph import StepGraph
 from ..log import BaseMetLog
 from ..structs import BinaryCfg
 from ..utils import lineset_nms
-from .mesh import DeviceMesh, build_mesh, split_leading
+from .mesh import DeviceMesh, build_mesh
 
 
 class MultiStreamM3Detector:
@@ -75,38 +80,42 @@ class MultiStreamM3Detector:
             max_gap=float(cfg.hough_line.max_gap), max_points=max_points,
             max_peaks=max_peaks, sharded_fold=True)
 
-        # the carries of each device group: [S_g, ...] on its device
+        # each device group's carries ([S_g, ...] and the frame timer, on
+        # its device) are the buffers of one StepGraph of the step: an idle
+        # one of these shapes adopted, or a new one; each goes back when
+        # the detector is dropped. self.timer is the host shadow.
         r1, c1, r2, c2 = self.std_roi
         per = n_streams // self.mesh.size
-        self._carries = []
+        self._graphs: list[tuple[StepGraph, int, int]] = []
         for dev, a, b in self.mesh.groups():
             s_g = (b - a) * per
 
             def zeros(*shape):
                 return torch.zeros((s_g, self.n - 1) + shape,
                                    dtype=torch.uint8, device=dev)
-            self._carries.append([
+            graph = StepGraph.acquire(_m3_block_step, [
                 zeros(h, w), zeros(r2 - r1, c2 - c1), zeros(h, w),
-                EmaState.init(momentum, float(init_thr), dev, (s_g,))])
+                EmaState.init(momentum, float(init_thr), dev, (s_g,)),
+                torch.zeros((), dtype=torch.int32, device=dev)])
+            weakref.finalize(self, graph.release)
+            self._graphs.append((graph, a * per, b * per))
         self.timer = 0
 
     def process_blocks_async(self, blocks) -> Any:
         """blocks: [S, T, H, W] uint8, one block per stream (same T), a
-        numpy array (uploaded here, the copy done before this returns) or
-        a tensor the caller does not write to afterwards (the carries may
-        keep its last frames as a view). Enqueues every device's step and
-        returns its packed buffers."""
-        assert blocks.shape[0] == self.s
+        numpy array or a tensor. Each device group's rows are copied into
+        its graph's frames buffer (one host-to-device copy from numpy,
+        done before this returns; device to device from a tensor on a
+        card) and its step runs once (a replay on a card). Returns the
+        groups' packed buffers."""
+        if blocks.shape[0] != self.s:
+            raise ValueError(f"{blocks.shape[0]} blocks for {self.s} "
+                             "streams")
+        if isinstance(blocks, np.ndarray):
+            blocks = torch.from_numpy(np.ascontiguousarray(blocks))
         packed = []
-        for carry, frames in zip(self._carries,
-                                 split_leading(blocks, self.mesh)):
-            # the frame timer as a device tensor of each block, as the JAX
-            # multistream device_puts one (a fill on the device)
-            timer = torch.full((), self.timer, dtype=torch.int32,
-                               device=frames.device)
-            out, _dst, *new_carry, _new_timer = _m3_block_step(
-                *carry, frames.contiguous(), timer, **self._step_kw)
-            carry[:] = new_carry
+        for graph, a, b in self._graphs:
+            out, _dst = graph(blocks[a:b], **self._step_kw)
             packed.append(out)
         self.timer += blocks.shape[1]
         return packed

@@ -646,3 +646,49 @@ def test_step_graph_on_card_equals_cpu_step(cuda_device, n):
                         dets["cpu"]._ema.tensors()):
             assert torch.equal(a.cpu(), e)
     assert len(step_graph.CAPTURES) == n_caps + 1
+
+
+@pytest.mark.cuda
+def test_step_graph_on_another_card_than_the_current(cuda_device):
+    """With cuda:0 current, an M3Detector on cuda:1 captures its step's
+    graph on cuda:1 and replays it there: the timer advances, and every
+    block's packed buffer, dst and carries equal the eager step's on
+    cuda:1 bit for bit; cuda:0 stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    from metdetpy_tpu_torch.detectors import m3det, step_graph
+    from metdetpy_tpu_torch.log import BaseMetLog
+    cfg = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json")).detector.cfg
+    h, w, t = 64, 96, 8
+    frames = generate_meteor_video(
+        width=w, height=h, fps=25.0, duration_sec=5 * t / 25.0,
+        meteors=[SynthMeteor(start_sec=0.6, end_sec=1.6, pt1=(70, 12),
+                             pt2=(20, 50))], n_stars=12, noise_sigma=2.5)
+    card = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    det, ref = (m3det.M3Detector(0.4, 25.0, np.ones((h, w), np.uint8), 4,
+                                 cfg, BaseMetLog(), max_points=1024,
+                                 device=card) for _ in range(2))
+    kw = det._step_static_kwargs()
+    step_graph.clear_idle()
+    n_caps = len(step_graph.CAPTURES)
+    carry = [ref._gray_hist, ref._sub_hist, ref._dy_hist, ref._ema,
+             ref._timer_dev]
+    for b in range(5):
+        block = torch.from_numpy(frames[b * t:(b + 1) * t]).to(card)
+        got = det.process_block_async(block)
+        out = m3det._m3_block_step(*carry[:4], block, carry[4], **kw)
+        carry = list(out[2:])
+        torch.cuda.synchronize(card)
+        assert torch.cuda.current_device() == 0
+        assert got[0].device == card and det._timer_dev.device == card
+        assert int(det._timer_dev) == (b + 1) * t
+        for a, e in zip(got, out[:2]):
+            assert torch.equal(a, e)
+        for a, e in zip(step_graph._tensors(
+                [det._gray_hist, det._sub_hist, det._dy_hist, det._ema,
+                 det._timer_dev]), step_graph._tensors(carry)):
+            assert torch.equal(a, e)
+    caps = step_graph.CAPTURES[n_caps:]
+    assert len(caps) == 1 and caps[0]["key"][2] == "cuda:1"
