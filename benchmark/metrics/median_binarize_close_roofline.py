@@ -1,0 +1,9 @@
+"""median_binarize_close's share of its roofline in the traced call, in percent: its
+launches' least time (bytes and operations at the main path's launch
+shapes, work/kernels.py) over their device time in the trace."""
+
+from benchmark.metrics._common import kernel_roofline
+
+
+def read(run):
+    return kernel_roofline(run, "median_binarize_close")
