@@ -58,13 +58,23 @@ def detect_video(video_name: str, mask_name: Optional[str],
     recheck model that cannot be built (a missing weight file) ends the
     call with that exception. With ``METDETPY_TPU_TRACE_DIR`` set, the
     loop from the loader's start on runs under ``torch.profiler`` and
-    writes one Chrome-trace file into that directory
-    (``profiling.maybe_torch_trace``).
+    writes one Chrome-trace file into that directory, with the call's
+    spans of every thread (``profiling.maybe_torch_trace``).
+
+    One span recorder (``profiling.StageTimer``) times the call, from its
+    entry on: this thread's spans, and those of the loader's threads and of
+    the detector, whose constructors it is handed to as ``spans``. Their
+    totals are the MDRF ``performance``.
     """
     dev = resolve_device(device)
     set_default_logger(debug_mode, work_mode)
     logger = get_default_logger()
     logger.start()
+    # the call's span recorder; api.init runs from here until the loader
+    # has started
+    spans = StageTimer()
+    init = spans.span("api.init")
+    init.__enter__()
 
     try:
         t0 = time.time()
@@ -108,7 +118,10 @@ def detect_video(video_name: str, mask_name: Optional[str],
                 hasattr(DetectorCls, "process_block_async")
                 and not visual_mode)
             loader_kwargs["device"] = dev
-        video_loader = LoaderCls(WrapperCls, video_name, **loader_kwargs)
+            loader_kwargs["spans"] = spans
+        with spans.span("api.init.loader"):
+            video_loader = LoaderCls(WrapperCls, video_name,
+                                     **loader_kwargs)
         video_info = video_loader.summary()
         logger.info(repr(video_loader))
 
@@ -134,10 +147,12 @@ def detect_video(video_name: str, mask_name: Optional[str],
             logger.info(f"Equivalent FPS {rt_param.eq_fps:.2f} may be too "
                         f"slow for {DetectorCls.__name__}.")
 
-        detector: BaseDetector = DetectorCls(
-            window_sec=cfg.detector.window_sec, fps=rt_param.eq_fps,
-            mask=video_loader.mask, num_cls=get_num_class(),
-            cfg=cfg.detector.cfg, logger=logger, device=dev)
+        with spans.span("api.init.detector"):
+            detector: BaseDetector = DetectorCls(
+                window_sec=cfg.detector.window_sec, fps=rt_param.eq_fps,
+                mask=video_loader.mask, num_cls=get_num_class(),
+                cfg=cfg.detector.cfg, logger=logger, device=dev,
+                spans=spans)
 
         # recheck stack source: a block loader's colour max-stacks (no
         # second decode), addressed in merged frames; the per-frame loaders
@@ -164,23 +179,25 @@ def detect_video(video_name: str, mask_name: Optional[str],
         from .track.collector import MeteorCollector
         if provider_key:
             cfg.collector.recheck_cfg.model.providers_key = provider_key
-        collector = MeteorCollector(cfg.collector, rt_param,
-                                    video_loader=recheck_loader,
-                                    logger=logger,
-                                    stack_provider=stack_provider,
-                                    device=dev)
+        with spans.span("api.init.collector"):
+            collector = MeteorCollector(cfg.collector, rt_param,
+                                        video_loader=recheck_loader,
+                                        logger=logger,
+                                        stack_provider=stack_provider,
+                                        device=dev)
 
         visual_manager = OpenCVMetVisu(exp_time=rt_param.exp_time,
                                        resolution=video_loader.runtime_size,
                                        flag=visual_mode)
     except Exception as e:
+        init.__exit__(None, None, None)
         logger.error(repr(e))
         logger.error("Fatal error occured when initializing.")
         logger.stop()
         raise e
 
-    timer = StageTimer()
-    t1 = time.time()
+    # wall_time_s counts the loop from here, not the set-up before it
+    spans.t_start = t1 = time.time()
     recovered_blocks = 0
     resume_idx = 0
     try:
@@ -194,11 +211,12 @@ def detect_video(video_name: str, mask_name: Optional[str],
                         f"{resume_idx}.")
         with maybe_torch_trace(dev):
             video_loader.start()
+            init.__exit__(None, None, None)
             if block_loader:
                 recovered_blocks = _run_block_loop(
                     video_loader, detector, collector, rt_param,
                     start_frame, work_mode, live_mode, visual_mode,
-                    visual_manager, logger, t0, timer=timer,
+                    visual_manager, logger, t0, spans=spans,
                     resume_idx=resume_idx, checkpoint_path=checkpoint_path,
                     checkpoint_interval_sec=checkpoint_interval_sec)
             else:
@@ -212,32 +230,32 @@ def detect_video(video_name: str, mask_name: Optional[str],
         logger.error(repr(e))
         raise e
     finally:
-        video_loader.release()
+        init.__exit__(None, None, None)  # where the loader failed to start
         try:
-            # joins the exporter's thread; an exception of the recheck
-            # raised there ends the call here
-            collector.clear()
+            # a wait: the loader's threads and the exporter's end
+            with spans.span("api.release", wait=True):
+                video_loader.release()
+                # joins the exporter's thread; an exception of the recheck
+                # raised there ends the call here
+                collector.clear()
         finally:
             if recheck_loader is not None:
                 recheck_loader.release()
             visual_manager.stop()
             logger.info("Time cost: %.4fs." % (time.time() - t1))
-            timer.log_summary(logger)
-            logger.stop()
+            spans.log_summary(logger)
+            # the logger's thread prints what is queued before it ends
+            with spans.span("api.log_flush", wait=True):
+                logger.stop()
 
-    perf = {k: v for k, v in timer.summary().items()}
+    perf = spans.summary()
     # blocks whose results were dropped by the loop's failure recovery
     # (0 in a healthy run)
     perf["recovered_blocks"] = recovered_blocks
-    # decode-thread stage accounting (the uploads and the preprocess
-    # placement included), so consumers can decompose decode_wait into
-    # host work and transfer
+    # the loader's preprocess placement and its probe (its spans are in
+    # the summary: loader_h2d_s, loader_merge_s, ...)
     for k, v in getattr(video_loader, "stage_stats", {}).items():
-        perf[f"loader_{k}"] = round(v, 4) if isinstance(v, float) else v
-    # detector-internal collect decomposition (e.g. MLDetector's stacked
-    # copy vs host postprocess split), so collect_s is attributable
-    for k, v in getattr(detector, "last_collect_stats", {}).items():
-        perf[f"collect_{k}"] = round(v, 4) if isinstance(v, float) else v
+        perf[f"loader_{k}"] = v
     return MDRF(version=VERSION, basic_info=video_info, config=cfg,
                 type="prediction", anno_size=video_info.resolution,
                 results=collector.met_exporter.meteor_list,
@@ -382,7 +400,7 @@ def detect_video_temporal(video_name: str, mask_name: Optional[str],
 def _run_block_loop(video_loader, detector: BaseDetector, collector,
                     rt_param, start_frame, work_mode, live_mode,
                     visual_mode, visual_manager, logger, t0,
-                    timer=None, resume_idx: int = 0,
+                    spans: StageTimer, resume_idx: int = 0,
                     checkpoint_path: Optional[str] = None,
                     checkpoint_interval_sec: float = 60.0) -> int:
     # One block shape per run: the tail block is padded by repeating its
@@ -403,8 +421,6 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
     import os as _os
     from concurrent.futures import ThreadPoolExecutor
 
-    if timer is None:
-        timer = StageTimer()
     merged_idx = resume_idx
     last_ckpt = time.time()
     e = rt_param.exp_frame
@@ -491,7 +507,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
         nonlocal consecutive_failures
         fut, block, n_real, epoch = entry
         try:
-            with timer.stage("collect"):
+            with spans.span("api.collect"):
                 if fut is not None:
                     results = fut.result()[:n_real]
                 else:
@@ -499,7 +515,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
             consecutive_failures = 0
         except Exception as exc:
             results = recover(exc, epoch, n_real, "processing")
-        timer.add_frames(n_real * e)
+        spans.add_frames(n_real * e)
         if progress is not None:
             progress.update(n_real)
         return emit_results(results, block, heartbeat=True)
@@ -516,7 +532,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
                     and merged_idx % eq_int_fps == 0):
                 logger.processing(str(frame2time(i, rt_param.fps)))
             if len(lines) or merged_idx % eq_int_fps == 0:
-                with timer.stage("collector_update"):
+                with spans.span("api.collector_update"):
                     collector.update(i, lines=lines, cates=cates)
             if visual_mode:
                 visu_info = [TextVisu(
@@ -571,7 +587,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
         entries = list(pending)
         pending.clear()
         try:
-            with timer.stage("collect"):
+            with spans.span("api.collect"):
                 many = detector.collect_many([en[0] for en in entries])
             consecutive_failures = 0
         except Exception as exc:
@@ -581,13 +597,13 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
             many = []
             for handle, n_real, epoch in entries:
                 try:
-                    with timer.stage("collect"):
+                    with spans.span("api.collect"):
                         many.append(detector.collect(handle))
                     consecutive_failures = 0
                 except Exception as exc2:
                     many.append(recover(exc2, epoch, n_real, "collecting"))
         for (handle, n_real, epoch), results in zip(entries, many):
-            timer.add_frames(n_real * e)
+            spans.add_frames(n_real * e)
             if progress is not None:
                 progress.update(n_real)
             if emit_results(results[:n_real], None,
@@ -598,12 +614,12 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
     stopped = False
     try:
         while not stopped:
-            with timer.stage("decode_wait"):
+            with spans.span("api.decode_wait", wait=True):
                 raw_block = video_loader.pop_block()
             if raw_block is None:
                 break
             if deferred:
-                with timer.stage("dispatch"):
+                with spans.span("api.dispatch"):
                     entry = dispatch(raw_block, submit=False)
                 handle, _blk, n_real, epoch = entry
                 if hasattr(detector, "handle_slim"):
@@ -619,7 +635,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
                 if len(pending) >= horizon and not flush_deferred():
                     stopped = True
             else:
-                with timer.stage("dispatch"):
+                with spans.span("api.dispatch"):
                     inflight.append(dispatch(raw_block))
                 while len(inflight) >= pipeline_depth:
                     if consume(inflight.popleft()) is False:
@@ -638,7 +654,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
                         stopped = True
                 if not stopped:
                     from .checkpoint import save_checkpoint
-                    with timer.stage("checkpoint"):
+                    with spans.span("api.checkpoint"):
                         save_checkpoint(checkpoint_path, detector,
                                         collector, merged_idx)
                     last_ckpt = time.time()

@@ -422,7 +422,7 @@ def bench_default(device="cuda", width: int = 1920, height: int = 1080,
     wall = perf.get("wall_time_s", elapsed)
     loader_h2d_s = perf.get("loader_h2d_s", 0.0)
     collect_s = perf.get("collect_s", 0.0)
-    loader_host_s = sum(perf.get(f"loader_{k}", 0.0)
+    loader_host_s = sum(perf.get(f"loader_{k}_s", 0.0)
                         for k in ("read", "preproc", "merge"))
     stages = {
         "pass_index": best_idx,
@@ -432,8 +432,8 @@ def bench_default(device="cuda", width: int = 1920, height: int = 1080,
         "collect_s": round(collect_s, 3),
         "loader_h2d_s": round(loader_h2d_s, 3),
         "loader_host_s": round(loader_host_s, 3),
-        "loader_qput_s": round(perf.get("loader_qput", 0.0), 3),
-        "loader_loop_wall_s": round(perf.get("loader_loop_wall", 0.0), 3),
+        "loader_qput_s": round(perf.get("loader_qput_s", 0.0), 3),
+        "loader_loop_wall_s": round(perf.get("loader_loop_s", 0.0), 3),
         "h2d_bytes": h2d_bytes,
         "d2h_bytes": d2h_bytes,
         "h2d_probe_gbps": round(h2d_gbps, 3),
@@ -785,8 +785,9 @@ def bench_dldet(device="cuda", width: int = 1920, height: int = 1080
         ("wall_time_s", "decode_wait_s", "dispatch_s", "collect_s",
          "collect_calls", "collect_fetch_s", "collect_fetch_bytes",
          "collect_post_s", "collect_orient_s", "collector_update_s",
-         "loader_read", "loader_preproc", "loader_merge", "loader_qput",
-         "loader_h2d_s", "loader_h2d_bytes", "loader_loop_wall")
+         "loader_read_s", "loader_preproc_s", "loader_merge_s",
+         "loader_qput_s", "loader_h2d_s", "loader_h2d_bytes",
+         "loader_loop_s")
         if perf.get(k) is not None}
     med = _median(pass_fps)
     return {

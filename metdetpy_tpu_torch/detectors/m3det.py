@@ -37,6 +37,7 @@ from ..log import BaseMetLog
 from ..ops import filters, kernels, windows
 from ..ops.f32 import fma_f32
 from ..ops.hough import hough_lines_batch
+from ..profiling import StageTimer
 from ..structs import BinaryCfg
 from ..utils import lineset_nms
 from .base import BaseDetector, FrameResult
@@ -376,13 +377,16 @@ class LineDetector(BaseDetector):
     def __init__(self, window_sec: float, fps: float, mask: np.ndarray,
                  num_cls: int, cfg: BinaryCfg, logger: BaseMetLog,
                  max_points: Optional[int] = None, max_peaks: int = 64,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda",
+                 spans: Optional[StageTimer] = None) -> None:
         if max_points is None:
             max_points = int(os.environ.get("METDETPY_TPU_MAX_POINTS", 8192))
         self.device = resolve_device(device)
         self.mask = mask
         self.num_cls = num_cls
         self.logger = logger
+        # the span recorder (the call's, where detect_video hands it in)
+        self.spans = StageTimer() if spans is None else spans
         self.mask_area = int(np.sum(mask))
         self.bi_cfg = cfg.binary
         self.hough_cfg = cfg.hough_line
@@ -467,7 +471,7 @@ class LineDetector(BaseDetector):
             for name, buf in zip(carries, self._graph.carries):
                 setattr(self, name, buf)
             weakref.finalize(self, self._graph.release)
-        return self._graph(block, **static)
+        return self._graph(block, self.spans, **static)
 
     def process_block_async(self, block) -> Any:
         """Dispatch one block; returns an opaque handle for ``collect``.
@@ -476,7 +480,10 @@ class LineDetector(BaseDetector):
 
     def collect(self, handle: Any) -> list[FrameResult]:
         """Fetch a dispatched block's results (one device->host copy)."""
-        return self._collect_from_buf(handle[0].cpu().numpy(), handle)
+        with self.spans.span("collect.fetch"):
+            buf = handle[0].cpu().numpy()
+        with self.spans.span("collect.post"):
+            return self._collect_from_buf(buf, handle)
 
     def collect_many(self, handles: list) -> list[list[FrameResult]]:
         """Collect many dispatched blocks with one device->host copy per
@@ -489,10 +496,12 @@ class LineDetector(BaseDetector):
                            or COLLECT_GROUP))
         bufs: list[np.ndarray] = []
         for a in range(0, len(handles), group):
-            arr = torch.stack([h[0] for h in handles[a:a + group]])
-            bufs.extend(arr.cpu().numpy())
-        return [self._collect_from_buf(bufs[i], h)
-                for i, h in enumerate(handles)]
+            with self.spans.span("collect.fetch"):
+                arr = torch.stack([h[0] for h in handles[a:a + group]])
+                bufs.extend(arr.cpu().numpy())
+        with self.spans.span("collect.post"):
+            return [self._collect_from_buf(bufs[i], h)
+                    for i, h in enumerate(handles)]
 
     def handle_slim(self, handle: Any) -> Any:
         """Drop the visu plane (a full [T, H, W] dst block) from a
@@ -768,7 +777,8 @@ class DiffAreaGuidingDetecor(BaseDetector):
     """EMA-background experimental detector; returns no lines (parity with
     the incomplete reference implementation, MetLib/Detector.py:451-519).
     Host numpy: it has no block step, and the block loop drives it frame
-    by frame through ``process_block``; ``device`` is accepted and unused.
+    by frame through ``process_block``; ``device`` and ``spans`` are
+    accepted and unused.
 
     Background maintenance uses Uint8EMA exactly as the reference does
     (warmup-adjusted momentum, int16-promoted blend,
@@ -777,7 +787,8 @@ class DiffAreaGuidingDetecor(BaseDetector):
 
     def __init__(self, window_sec: float, fps: float, mask: np.ndarray,
                  num_cls: int, cfg, logger: BaseMetLog,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda",
+                 spans: Optional[StageTimer] = None) -> None:
         from ..utils import Uint8EMA
         self.logger = logger
         momentum = 1 - 1 / (window_sec * fps)

@@ -13,7 +13,6 @@ batched; nothing is copied back until the block is collected.
 from __future__ import annotations
 
 import math
-import time
 from typing import Optional
 
 import numpy as np
@@ -24,6 +23,7 @@ from ..log import BaseMetLog
 from ..models import init_model
 from ..models.yolo import to_numpy
 from ..ops.f32 import fma_f32
+from ..profiling import StageTimer
 from ..structs import Box, DLCfg
 from ..track.features import calc_roi_gradient
 from ..utils import expand_cls_pred
@@ -276,7 +276,8 @@ class MLDetector(BaseDetector):
 
     def __init__(self, window_sec: float, fps: float, mask: np.ndarray,
                  num_cls: int, cfg: DLCfg, logger: BaseMetLog,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda",
+                 spans: Optional[StageTimer] = None) -> None:
         self.device = resolve_device(device)
         self.mask = mask
         self.num_cls = num_cls
@@ -294,8 +295,8 @@ class MLDetector(BaseDetector):
         self._pending: list[np.ndarray] = []
         self._last: Optional[FrameResult] = None
         self.result_pos = np.zeros((0, 4), int)
-        # cumulative collect_many decomposition (api perf dict)
-        self.last_collect_stats: dict = {}
+        # the span recorder (the call's, where detect_video hands it in)
+        self.spans = StageTimer() if spans is None else spans
 
     def update(self, new_frame: np.ndarray) -> None:
         self._pending.append(np.asarray(new_frame, dtype=np.uint8))
@@ -323,11 +324,13 @@ class MLDetector(BaseDetector):
         tensor already on the detector's device. Needs ``supports_async``
         (a model with nms=True); the model's dispatch raises otherwise."""
         with torch.inference_mode():
-            if isinstance(block, np.ndarray):
-                block = torch.from_numpy(block).to(self.device)
-            stacks_dev, self._hist = _window_max_color(self._hist, block,
-                                                       self.n)
-            mh = self.model.dispatch_batch_device(stacks_dev)
+            with self.spans.span("dldet.window_max"):
+                if isinstance(block, np.ndarray):
+                    block = torch.from_numpy(block).to(self.device)
+                stacks_dev, self._hist = _window_max_color(self._hist,
+                                                           block, self.n)
+            with self.spans.span("dldet.model_dispatch"):
+                mh = self.model.dispatch_batch_device(stacks_dev)
             orient_dev = None
             if mh[0] == "compact":
                 # chain the ROI orientation on the packed kept rows so the
@@ -364,17 +367,18 @@ class MLDetector(BaseDetector):
         device->host copy per level and slot for the whole horizon (and
         none in the hot dispatch loop). The host postprocess then runs per
         block on the prefetched buffers through the model's normal collect
-        path."""
+        path. Spans: ``collect.fetch`` (a stacked copy, its bytes in the
+        counter ``collect.fetch_bytes``), ``collect.post`` (the model's host
+        postprocess of a block) and ``collect.orient`` (its orientations).
+        """
         if not handles:
             return []
-        stats = {"fetch_s": 0.0, "post_s": 0.0, "orient_s": 0.0,
-                 "fetch_bytes": 0}
+        spans = self.spans
 
         def fetch(tensors) -> np.ndarray:
-            tf = time.perf_counter()
-            arr = torch.stack(list(tensors)).cpu().numpy()
-            stats["fetch_s"] += time.perf_counter() - tf
-            stats["fetch_bytes"] += arr.nbytes
+            with spans.span("collect.fetch"):
+                arr = torch.stack(list(tensors)).cpu().numpy()
+            spans.count("collect.fetch_bytes", arr.nbytes)
             return arr
 
         n_levels = len(handles[0][1][6])
@@ -390,20 +394,15 @@ class MLDetector(BaseDetector):
             single_scale, b, h, w, tflag, k_budget, outs = mh
             outs_np = [(outs[lv][0], *(x[i] for x in fetched[lv]))
                        for lv in range(n_levels)]
-            tp = time.perf_counter()
-            batch_out, rowidx = self.model.collect_batch_device_rows(
-                (single_scale, b, h, w, tflag, k_budget, outs_np))
-            to = time.perf_counter()
-            out.append(self._orient_results(
-                stacks_dev, batch_out,
-                orient=None if fetched_orient is None else fetched_orient[i],
-                rowidx=rowidx))
-            te = time.perf_counter()
-            stats["post_s"] += to - tp
-            stats["orient_s"] += te - to
-        for k2, v2 in stats.items():
-            self.last_collect_stats[k2] = (
-                self.last_collect_stats.get(k2, 0) + v2)
+            with spans.span("collect.post"):
+                batch_out, rowidx = self.model.collect_batch_device_rows(
+                    (single_scale, b, h, w, tflag, k_budget, outs_np))
+            with spans.span("collect.orient"):
+                out.append(self._orient_results(
+                    stacks_dev, batch_out,
+                    orient=(None if fetched_orient is None
+                            else fetched_orient[i]),
+                    rowidx=rowidx))
         return out
 
     def process_block(self, block: np.ndarray) -> list[FrameResult]:

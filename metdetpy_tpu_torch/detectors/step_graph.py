@@ -67,6 +67,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops import kernels
+from ..profiling import StageTimer
 
 # every capture of this process, oldest first: the step's name, key, the
 # two warm-ups' seconds, the capture's seconds, the growth of the card's
@@ -160,10 +161,15 @@ class StepGraph:
                 buf.copy_(value)
         return packed, dst
 
-    def __call__(self, block: torch.Tensor, **static):
+    def __call__(self, block: torch.Tensor, spans: Optional[StageTimer] = None,
+                 **static):
         """One block ([T, H, W] u8, on the carries' device or a CPU
         tensor, which is uploaded): returns (packed, dst) as new tensors;
-        the carries advance by one step."""
+        the carries advance by one step. On a card the call's parts are
+        spans of ``spans`` (the caller's recorder, where it gives one):
+        ``step_graph.frames_copy``, ``step_graph.capture``
+        (the first call of a key), ``step_graph.replay`` and
+        ``step_graph.out_clone``."""
         dev = self.carries[-1].device
         key = (tuple(sorted(static.items())), tuple(block.shape), str(dev))
         entry = self._entries.get(key)
@@ -174,16 +180,22 @@ class StepGraph:
             entry.frames.copy_(block)
             packed, dst = self.body(entry.frames, static)
             return packed.clone(), dst.clone()
+        if spans is None:
+            spans = StageTimer()
         # on the carries' card, whichever card is current (module docstring)
         with torch.cuda.device(dev):
-            entry.frames.copy_(block)
+            with spans.span("step_graph.frames_copy"):
+                entry.frames.copy_(block)
             if entry.graph is None:
-                self._capture(entry, key, static)
-            entry.graph.replay()
+                with spans.span("step_graph.capture"):
+                    self._capture(entry, key, static)
+            with spans.span("step_graph.replay"):
+                entry.graph.replay()
             for name, n in entry.launches.items():
                 kernels.LAUNCHES[name] += n
             packed, dst = entry.out
-            return packed.clone(), dst.clone()
+            with spans.span("step_graph.out_clone"):
+                return packed.clone(), dst.clone()
 
     def _capture(self, entry: _Entry, key, static: dict) -> None:
         """Two eager warm-ups, then the capture; on the frames' card, which

@@ -38,6 +38,7 @@ import cv2
 import numpy as np
 
 from ..log import get_default_logger
+from ..profiling import StageTimer
 from ..structs import BasicInfo
 from ..utils import (frame2time, parse_resize_param, sigma_clip, time2frame,
                      timestr2int)
@@ -79,7 +80,6 @@ def _native_assemble_wins(src_shape: tuple, dst_hw: tuple) -> bool:
     key = (tuple(src_shape), tuple(dst_hw))
     if key in _ASSEMBLE_PROBE_CACHE:
         return _ASSEMBLE_PROBE_CACHE[key]
-    import time as _time
     dh, dw = dst_hw
     color = len(src_shape) == 3
     n = 4
@@ -116,12 +116,8 @@ def _native_assemble_wins(src_shape: tuple, dst_hw: tuple) -> bool:
     # each path's cleanest sample
     t_native = t_cv2 = float("inf")
     for _ in range(3):
-        t0 = _time.perf_counter()
-        native()
-        t_native = min(t_native, _time.perf_counter() - t0)
-        t0 = _time.perf_counter()
-        cv2_path()
-        t_cv2 = min(t_cv2, _time.perf_counter() - t0)
+        t_native = min(t_native, _timeit(native))
+        t_cv2 = min(t_cv2, _timeit(cv2_path))
     win = t_native < t_cv2
     _ASSEMBLE_PROBE_CACHE[key] = win
     return win
@@ -748,7 +744,7 @@ class BlockVideoLoader(VanillaVideoLoader):
     def __init__(self, *args: Any, block_frames: Optional[int] = None,
                  maxsize: int = 4, keep_color_stacks: bool = False,
                  device_put: bool = False, device="cpu",
-                 **kwargs: Any) -> None:
+                 spans: Optional[StageTimer] = None, **kwargs: Any) -> None:
         import os
         if block_frames is None:
             block_frames = int(os.environ.get("METDETPY_TPU_BLOCK_FRAMES",
@@ -761,9 +757,10 @@ class BlockVideoLoader(VanillaVideoLoader):
         # "auto" exposure pops frames); device-put mode is set after it
         self.device_put_mode = False
         self.device = device
-        # decode-thread stage accounting (read/preproc/merge/qput, and
-        # h2d_s/h2d_bytes of the uploads), surfaced into the pipeline
-        # performance dict
+        # the span recorder of the decode and uploader threads (the call's
+        # own, where detect_video hands it in), and what the loader found
+        # out besides: the placement and its probe
+        self.spans = StageTimer() if spans is None else spans
         self.stage_stats: dict = {}
         self._stop_requested = False
         self._upload_queue = None
@@ -839,9 +836,10 @@ class BlockVideoLoader(VanillaVideoLoader):
                 target=self._uploadloop,
                 args=(self._upload_queue, self.block_queue,
                       self._upload_stop),
-                daemon=True)
+                name="loader.upload", daemon=True)
             self._upload_thread.start()
-        self.thread = threading.Thread(target=target, daemon=True)
+        self.thread = threading.Thread(target=target, name="loader.decode",
+                                       daemon=True)
         self.thread.start()
 
     def _transport_prefers_device_preproc(self, down2: bool) -> bool:
@@ -862,8 +860,9 @@ class BlockVideoLoader(VanillaVideoLoader):
             return True
         rw, rh = self.decode_size
         w, h = self.runtime_size
-        t_host = _probe_host_resize_s(rh, rw, w, h)
-        bw = _probe_h2d_bps(rh, rw, self.device)
+        with self.spans.span("loader.probe"):
+            t_host = _probe_host_resize_s(rh, rw, w, h)
+            bw = _probe_h2d_bps(rh, rw, self.device)
         extra_s = (rw * rh - w * h) / bw  # per-frame extra upload time
         prefer = extra_s < t_host
         self.stage_stats["preproc_probe"] = {
@@ -927,14 +926,9 @@ class BlockVideoLoader(VanillaVideoLoader):
         return out
 
     def _lease(self, block_shape: tuple, pool_size: int) -> list:
-        """Lease the block pool for this run (timed: pinning takes a while
-        on first use), to be returned in release()."""
-        import time as _time
-        t0 = _time.perf_counter()
+        """Lease the block pool for this run, to be returned in
+        release()."""
         pool = _lease_block_pool(block_shape, pool_size, self._pinned)
-        self.stage_stats["pool_s"] = _time.perf_counter() - t0
-        self.stage_stats["pool_bytes"] = int(np.prod(block_shape)) * len(
-            pool)
         # returned to the cache in release(), once the consumer has
         # drained the queue (queued blocks alias these buffers)
         self._leased_pool = (block_shape, pool, self._pinned)
@@ -948,12 +942,11 @@ class BlockVideoLoader(VanillaVideoLoader):
         METDETPY_TPU_DEVICE_PREPROC_COLOR=1 they go to the host-preprocess
         loop instead."""
         import os as _os
-        import time as _time
         from ..ops.transforms import make_block_preprocess
-        stats = self.stage_stats
-        stats.update({"read": 0.0, "preproc": 0.0, "merge": 0.0,
-                      "qput": 0.0})
-        loop_t0 = _time.perf_counter()
+        spans = self.spans
+        loop = spans.span("loader.loop")
+        loop.__enter__()
+        merge = spans.span("loader.merge")
         handed_off = False  # to _blockloop, which ends the stream itself
         try:
             src = getattr(self.video, "frames", None)
@@ -967,19 +960,18 @@ class BlockVideoLoader(VanillaVideoLoader):
                 down2 = self._device_preproc_gate()
                 self._dev_preproc_fn = make_block_preprocess(
                     bool(down2), color=False)
-                stats["placement"] = "device"
+                self.stage_stats["placement"] = "device"
                 start = self.video.get_video_pos()
                 total = min(self.iterations, src.shape[0] - start)
                 bf = self.block_frames
                 for a in range(start, start + total, bf):
                     if self.read_stopped:
                         break
-                    t0 = _time.perf_counter()
                     self._put_block(src[a:min(a + bf, start + total)])
-                    stats["qput"] += _time.perf_counter() - t0
                 self.video.set_to(start + total)
                 return
-            first = self._read_raw_chunk(self.PREPROC_CHUNK)
+            with spans.span("loader.read"):
+                first = self._read_raw_chunk(self.PREPROC_CHUNK)
             if not first:
                 return
             color = first[0].ndim == 3
@@ -987,11 +979,12 @@ class BlockVideoLoader(VanillaVideoLoader):
                     "METDETPY_TPU_DEVICE_PREPROC_COLOR", "0") != "1":
                 self._peeked = first
                 handed_off = True
+                loop.__exit__(None, None, None)
                 self._blockloop()
                 return
             down2 = self._device_preproc_gate()
             self._dev_preproc_fn = make_block_preprocess(bool(down2), color)
-            stats["placement"] = "device"
+            self.stage_stats["placement"] = "device"
             rw, rh = self.decode_size
             block_shape = ((self.block_frames, rh, rw, 3) if color
                            else (self.block_frames, rh, rw))
@@ -1004,50 +997,48 @@ class BlockVideoLoader(VanillaVideoLoader):
             raw_left = self.iterations - len(first)
             chunk = first
             while True:
-                t0 = _time.perf_counter()
+                merge.__enter__()
                 for raw in chunk:
                     np.copyto(block[n_in_block], raw)
                     n_in_block += 1
                     if n_in_block == self.block_frames:
-                        stats["merge"] += _time.perf_counter() - t0
-                        t0 = _time.perf_counter()
+                        merge.__exit__(None, None, None)
                         self._put_block(block)
                         pool_idx = (pool_idx + 1) % pool_size
                         block = block_pool[pool_idx]
                         n_in_block = 0
-                        stats["qput"] += _time.perf_counter() - t0
-                        t0 = _time.perf_counter()
-                stats["merge"] += _time.perf_counter() - t0
+                        merge.__enter__()
+                merge.__exit__(None, None, None)
                 if raw_left <= 0 or self.read_stopped:
                     break
-                t0 = _time.perf_counter()
-                chunk = self._read_raw_chunk(min(self.PREPROC_CHUNK,
-                                                 raw_left))
-                stats["read"] += _time.perf_counter() - t0
+                with spans.span("loader.read"):
+                    chunk = self._read_raw_chunk(min(self.PREPROC_CHUNK,
+                                                     raw_left))
                 if not chunk:
                     break
                 raw_left -= len(chunk)
             if n_in_block:
-                self._put_block(block[:n_in_block].copy())
+                with merge:  # the tail block, out of the pool
+                    tail = block[:n_in_block].copy()
+                self._put_block(tail)
         except BaseException as exc:  # surface decode-thread failures
             self._thread_exc = exc
         finally:
             if not handed_off:
-                stats["loop_wall"] = _time.perf_counter() - loop_t0
+                loop.__exit__(None, None, None)
                 if _os.environ.get("METDETPY_TPU_LOADER_STATS"):
-                    self.logger.info("loader stats (raw): " + ", ".join(
-                        f"{k}={v}" for k, v in stats.items()))
+                    self._log_stats("loader stats (raw): ")
                 self.read_stopped = True
                 self._put_eos()
 
     def _blockloop(self):
         import os as _os
-        import time as _time
         from concurrent.futures import ThreadPoolExecutor
-        stats = self.stage_stats
-        stats.update({"read": 0.0, "preproc": 0.0, "merge": 0.0,
-                      "qput": 0.0})
-        loop_t0 = _time.perf_counter()
+        spans = self.spans
+        loop = spans.span("loader.loop")
+        loop.__enter__()
+        # paused while a full block is queued (``_put_block``'s own span)
+        merge = spans.span("loader.merge")
         e = self.exp_frame
         w, h = self.runtime_size
         n_raw_total = (self.iterations // e) * e
@@ -1065,7 +1056,7 @@ class BlockVideoLoader(VanillaVideoLoader):
         pool_size = self.block_queue.maxsize + int(
             _os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6)) + 2
         block_pool = self._lease(block_shape, pool_size)
-        stats["placement"] = "host"
+        self.stage_stats["placement"] = "host"
         pool_idx = 0
         block = block_pool[pool_idx]
         n_in_block = 0
@@ -1085,16 +1076,14 @@ class BlockVideoLoader(VanillaVideoLoader):
         try:
             raw_left = n_raw_total
             while raw_left > 0 and not self.read_stopped:
-                t0 = _time.perf_counter() if stats is not None else 0.0
-                chunk = self._read_raw_chunk(min(self.PREPROC_CHUNK,
-                                                 raw_left))
-                if stats is not None:
-                    stats["read"] += _time.perf_counter() - t0
+                with spans.span("loader.read"):
+                    chunk = self._read_raw_chunk(min(self.PREPROC_CHUNK,
+                                                     raw_left))
                 if not chunk:
                     break
                 raw_left -= len(chunk)
-                t0 = _time.perf_counter() if stats is not None else 0.0
                 if direct:
+                    merge.__enter__()
                     # unmasked chunks headed for a gray block can assemble
                     # through ONE native call (cv2-bit-exact INTER_LINEAR
                     # resize + BT.601 gray conversion for color sources +
@@ -1141,20 +1130,13 @@ class BlockVideoLoader(VanillaVideoLoader):
                             n_in_block += g
                             merged_idx += g
                             if n_in_block == self.block_frames:
-                                if stats is not None:
-                                    stats["merge"] += (_time.perf_counter()
-                                                       - t0)
-                                    t0 = _time.perf_counter()
+                                merge.__exit__(None, None, None)
                                 self._put_block(block)
                                 pool_idx = (pool_idx + 1) % pool_size
                                 block = block_pool[pool_idx]
                                 n_in_block = 0
-                                if stats is not None:
-                                    stats["qput"] += (_time.perf_counter()
-                                                      - t0)
-                                    t0 = _time.perf_counter()
-                        if stats is not None:
-                            stats["merge"] += _time.perf_counter() - t0
+                                merge.__enter__()
+                        merge.__exit__(None, None, None)
                         continue
                     for raw in chunk:
                         slot = block[n_in_block]
@@ -1176,31 +1158,25 @@ class BlockVideoLoader(VanillaVideoLoader):
                         n_in_block += 1
                         merged_idx += 1
                         if n_in_block == self.block_frames:
-                            if stats is not None:
-                                stats["merge"] += _time.perf_counter() - t0
-                                t0 = _time.perf_counter()
+                            merge.__exit__(None, None, None)
                             self._put_block(block)
                             pool_idx = (pool_idx + 1) % pool_size
                             block = block_pool[pool_idx]
                             n_in_block = 0
-                            if stats is not None:
-                                stats["qput"] += _time.perf_counter() - t0
-                                t0 = _time.perf_counter()
-                    if stats is not None:
-                        stats["merge"] += _time.perf_counter() - t0
+                            merge.__enter__()
+                    merge.__exit__(None, None, None)
                     continue
                 # pooled path (color recheck stacks / debayer)
-                if self.keep_color_stacks:
-                    results = list(pool.map(
-                        lambda r: self.preprocess(r, keep_color=True),
-                        chunk))
-                    pending_gray.extend(g for g, _ in results)
-                    pending_color.extend(c for _, c in results)
-                else:
-                    pending_gray.extend(pool.map(self.preprocess, chunk))
-                if stats is not None:
-                    stats["preproc"] += _time.perf_counter() - t0
-                    t0 = _time.perf_counter()
+                with spans.span("loader.preproc"):
+                    if self.keep_color_stacks:
+                        results = list(pool.map(
+                            lambda r: self.preprocess(r, keep_color=True),
+                            chunk))
+                        pending_gray.extend(g for g, _ in results)
+                        pending_color.extend(c for _, c in results)
+                    else:
+                        pending_gray.extend(pool.map(self.preprocess, chunk))
+                merge.__enter__()
                 # merge complete exposure groups into the block buffer
                 while len(pending_gray) >= e:
                     group, pending_gray = pending_gray[:e], pending_gray[e:]
@@ -1228,33 +1204,37 @@ class BlockVideoLoader(VanillaVideoLoader):
                             color_acc = None
                     merged_idx += 1
                     if n_in_block == self.block_frames:
-                        if stats is not None:
-                            stats["merge"] += _time.perf_counter() - t0
-                            t0 = _time.perf_counter()
+                        merge.__exit__(None, None, None)
                         self._put_block(block)
                         pool_idx = (pool_idx + 1) % pool_size
                         block = block_pool[pool_idx]
                         n_in_block = 0
-                        if stats is not None:
-                            stats["qput"] += _time.perf_counter() - t0
-                            t0 = _time.perf_counter()
-                if stats is not None:
-                    stats["merge"] += _time.perf_counter() - t0
+                        merge.__enter__()
+                merge.__exit__(None, None, None)
             if n_in_block:
-                self._put_block(block[:n_in_block].copy())
+                with merge:  # the tail block, out of the pool
+                    tail = block[:n_in_block].copy()
+                self._put_block(tail)
             if self.keep_color_stacks and color_acc is not None:
                 self.color_stacks[merged_idx // RECHECK_CHUNK] = color_acc
         except BaseException as exc:  # surface decode-thread failures
             self._thread_exc = exc
         finally:
-            stats["loop_wall"] = _time.perf_counter() - loop_t0
+            loop.__exit__(None, None, None)
             if _os.environ.get("METDETPY_TPU_LOADER_STATS"):
-                self.logger.info("loader stats: " + ", ".join(
-                    f"{k}={v}" for k, v in stats.items()))
+                self._log_stats("loader stats: ")
             if pool is not None:
                 pool.shutdown(wait=False)
             self.read_stopped = True
             self._put_eos()
+
+    def _log_stats(self, head: str) -> None:
+        """Log the loader's figures (METDETPY_TPU_LOADER_STATS)."""
+        figures = {k: v for k, v in self.spans.summary().items()
+                   if k.startswith("loader_")}
+        figures.update(self.stage_stats)
+        self.logger.info(head + ", ".join(
+            f"{k}={v}" for k, v in figures.items()))
 
     def _put_block(self, block: np.ndarray) -> None:
         """Queue a completed block with indefinite backpressure: the
@@ -1265,28 +1245,30 @@ class BlockVideoLoader(VanillaVideoLoader):
         In device-put mode the queue carries (device tensor, n_real)
         pairs; the upload runs in the uploader thread when one is active
         (async-upload mode, overlapping decode with the copy) or inline
-        here otherwise."""
-        if self.device_put_mode:
-            uq = self._upload_queue
-            if uq is not None:
-                item = (block, block.shape[0])
-                while True:
-                    try:
-                        uq.put(item, timeout=PUT_TIMEOUT)
-                        return
-                    except queue.Full:
-                        if self.read_stopped:
-                            raise
-            item = self._stage_block(block)
-        else:
-            item = block
-        while True:
-            try:
-                self.block_queue.put(item, timeout=PUT_TIMEOUT)
-                return
-            except queue.Full:
-                if self.read_stopped:
-                    raise
+        here otherwise. The span ``loader.qput`` times it (a wait, but for
+        an upload made here)."""
+        with self.spans.span("loader.qput", wait=True):
+            if self.device_put_mode:
+                uq = self._upload_queue
+                if uq is not None:
+                    item = (block, block.shape[0])
+                    while True:
+                        try:
+                            uq.put(item, timeout=PUT_TIMEOUT)
+                            return
+                        except queue.Full:
+                            if self.read_stopped:
+                                raise
+                item = self._stage_block(block)
+            else:
+                item = block
+            while True:
+                try:
+                    self.block_queue.put(item, timeout=PUT_TIMEOUT)
+                    return
+                except queue.Full:
+                    if self.read_stopped:
+                        raise
 
     def _stage_block(self, block: np.ndarray) -> tuple:
         """Upload one block (and run the device preprocess, if any); returns
@@ -1298,38 +1280,44 @@ class BlockVideoLoader(VanillaVideoLoader):
         the fixed block shape on the device by repeating its last frame.
         The result is marked as used on the consumer's (default) stream, so
         its memory is not reused while the consumer's work reads it. On the
-        CPU the block is copied into a fresh tensor."""
-        import time as _t
+        CPU the block is copied into a fresh tensor.
 
+        Spans: ``loader.h2d`` around it all (MDRF ``loader_h2d_s``), with
+        ``loader.upload`` (the copy, the tail's pad and the device
+        preprocess, enqueued; done on the CPU) and, on a card,
+        ``loader.upload_event`` (waiting for their event) inside."""
         import torch
         n_real = block.shape[0]
         dev = torch.device(self.device)
         src = torch.from_numpy(block)
-        t0 = _t.perf_counter()
         shape = (self.block_frames,) + tuple(block.shape[1:])
-        if dev.type == "cuda":
-            stream = self._upload_stream
-            with torch.cuda.stream(stream):
-                out = torch.empty(shape, dtype=torch.uint8, device=dev)
-                out[:n_real].copy_(src, non_blocking=True)
-                if n_real < self.block_frames:
-                    out[n_real:] = out[n_real - 1:n_real]
-                if self._dev_preproc_fn is not None:
-                    out = self._dev_preproc_fn(out)
-                done = torch.cuda.Event()
-                done.record(stream)
-            out.record_stream(torch.cuda.default_stream(dev))
-            done.synchronize()
-        else:
-            out = torch.empty(shape, dtype=torch.uint8)
-            out[:n_real] = src
-            if n_real < self.block_frames:
-                out[n_real:] = out[n_real - 1:n_real]
-            if self._dev_preproc_fn is not None:
-                out = self._dev_preproc_fn(out)
-        st = self.stage_stats
-        st["h2d_s"] = st.get("h2d_s", 0.0) + _t.perf_counter() - t0
-        st["h2d_bytes"] = st.get("h2d_bytes", 0) + block.nbytes
+        spans = self.spans
+        with spans.span("loader.h2d"):
+            if dev.type == "cuda":
+                stream = self._upload_stream
+                with spans.span("loader.upload"):
+                    with torch.cuda.stream(stream):
+                        out = torch.empty(shape, dtype=torch.uint8,
+                                          device=dev)
+                        out[:n_real].copy_(src, non_blocking=True)
+                        if n_real < self.block_frames:
+                            out[n_real:] = out[n_real - 1:n_real]
+                        if self._dev_preproc_fn is not None:
+                            out = self._dev_preproc_fn(out)
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                    out.record_stream(torch.cuda.default_stream(dev))
+                with spans.span("loader.upload_event", wait=True):
+                    done.synchronize()
+            else:
+                with spans.span("loader.upload"):
+                    out = torch.empty(shape, dtype=torch.uint8)
+                    out[:n_real] = src
+                    if n_real < self.block_frames:
+                        out[n_real:] = out[n_real - 1:n_real]
+                    if self._dev_preproc_fn is not None:
+                        out = self._dev_preproc_fn(out)
+        self.spans.count("loader.h2d_bytes", block.nbytes)
         return (out, n_real)
 
     def _uploadloop(self, upload_queue, block_queue, stop_evt):
@@ -1343,10 +1331,12 @@ class BlockVideoLoader(VanillaVideoLoader):
         retired uploader that outlives its bounded join keeps talking to its
         own run's queues and can never steal blocks from, reorder, or
         inject a stray EOS into a successor run."""
+        spans = self.spans
         try:
             while True:
                 try:
-                    item = upload_queue.get(timeout=PUT_TIMEOUT)
+                    with spans.span("loader.upload_get", wait=True):
+                        item = upload_queue.get(timeout=PUT_TIMEOUT)
                 except queue.Empty:
                     if stop_evt.is_set():
                         return
@@ -1354,13 +1344,14 @@ class BlockVideoLoader(VanillaVideoLoader):
                 if item is None:
                     return
                 staged = self._stage_block(item[0])
-                while True:
-                    try:
-                        block_queue.put(staged, timeout=PUT_TIMEOUT)
-                        break
-                    except queue.Full:
-                        if stop_evt.is_set():
-                            return
+                with spans.span("loader.upload_put", wait=True):
+                    while True:
+                        try:
+                            block_queue.put(staged, timeout=PUT_TIMEOUT)
+                            break
+                        except queue.Full:
+                            if stop_evt.is_set():
+                                return
         except BaseException as exc:  # surface upload failures to pop_block
             if not stop_evt.is_set():
                 self._thread_exc = exc

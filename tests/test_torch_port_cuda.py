@@ -391,7 +391,7 @@ def _feed_blocks(frames, device_put, monkeypatch, **env):
             out.append(t[:n].cpu().numpy())
         else:
             out.append(np.array(item))
-    stats = dict(ld.stage_stats)
+    stats = {**ld.spans.summary(), **ld.stage_stats}
     pinned = ld._pinned
     ld.release()
     return np.concatenate(out), stats, pinned
@@ -411,7 +411,7 @@ def test_device_feed_on_card_equals_host_blocks(cuda_device, monkeypatch,
         frames, True, monkeypatch, METDETPY_TPU_DEVICE_PREPROC=preproc,
         METDETPY_TPU_DEVICE_PREPROC_COLOR="1")
     np.testing.assert_array_equal(got, want)
-    assert stats["h2d_bytes"] > 0
+    assert stats["loader_h2d_bytes"] > 0
     assert stats["placement"] == ("host" if preproc == "0" else "device")
     assert pinned
 

@@ -211,8 +211,8 @@ def test_mldetector_reset_and_collect_many(monkeypatch, clip):
             np.testing.assert_array_equal(ap, bp)
             np.testing.assert_array_equal(ac, bc)
     assert sum(len(p) for blk in many for p, _ in blk) > 0
-    stats = td.last_collect_stats
-    assert stats["fetch_bytes"] > 0 and stats["post_s"] > 0
+    totals, _, values = td.spans.snapshot()
+    assert values["collect.fetch_bytes"] > 0 and totals["collect.post"] > 0
     assert td.collect_many([]) == []
     assert td.max_deferred_horizon == 16
     assert int(td._hist.sum()) > 0
