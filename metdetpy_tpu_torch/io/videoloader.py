@@ -709,6 +709,37 @@ def _return_block_pool(shape: tuple, pool: list, pinned: bool) -> None:
         _POOL_CACHE.setdefault((shape, pinned), []).append(pool)
 
 
+# pinned host memory a staging ring may hold (one allocation of its slots)
+_STAGE_RING_BYTES = 1 << 30
+
+
+class _StagingRing:
+    """The slots an in-memory feed's blocks are staged in before their
+    upload: ``slots[i]`` is one block buffer. A slot goes back to the free
+    list through ``freer(i)``, which the uploader calls once the copy
+    out of the slot has completed (after its event), so a slot is
+    refilled only then, however many newer blocks were queued."""
+
+    def __init__(self, slots: np.ndarray) -> None:
+        self.slots = slots
+        self._free: "queue.Queue[int]" = queue.Queue()
+        for i in range(len(slots)):
+            self._free.put(i)
+
+    def take(self, stopped) -> Optional[int]:
+        """A free slot's index; None once ``stopped()`` is true (polled
+        every 50 ms, so a stopped loader's decode thread ends promptly)."""
+        while True:
+            try:
+                return self._free.get(timeout=0.05)
+            except queue.Empty:
+                if stopped():
+                    return None
+
+    def freer(self, i: int):
+        return lambda: self._free.put(i)
+
+
 class BlockVideoLoader(VanillaVideoLoader):
     """Block-oriented loader for the device pipeline.
 
@@ -734,7 +765,11 @@ class BlockVideoLoader(VanillaVideoLoader):
     half of it (gray target, no mask, single-frame exposure), the
     preprocess itself can run on the device (``_rawblockloop``): the
     decode thread then only assembles raw frames, and the uploader runs
-    the cv2-exact downscale and gray conversion after the copy.
+    the cv2-exact downscale and gray conversion after the copy. An
+    in-memory gray source is staged block by block into a leased ring
+    (``_StagingRing``) whose slots are refilled only once their upload has
+    completed, so every upload to a card reads pinned memory, a short
+    tail block too.
 
     With ``keep_color_stacks=True`` the thread additionally maintains a
     color max-stack per RECHECK_CHUNK merged frames, giving the recheck
@@ -822,15 +857,16 @@ class BlockVideoLoader(VanillaVideoLoader):
                   else self._blockloop)
         # async-upload mode: the decode thread hands completed blocks to a
         # dedicated uploader thread, so decode and the upload overlap.
-        # Bounded to 3 queued blocks: a pooled slot is reused only after
-        # pool_size (>= 12) newer blocks, so 3 queued + 1 staging can
-        # never alias a slot the decoder is refilling.
+        # Bounded to UPLOAD_DEPTH (3) queued blocks: a pooled slot is
+        # reused only after pool_size (>= 12) newer blocks, so 3 queued + 1
+        # staging can never alias a slot the decoder is refilling (a
+        # staging ring's slot only after its upload has completed).
         self._upload_queue = None
         self._upload_thread = None
         self._upload_stop = None
         if self.device_put_mode and os.environ.get(
                 "METDETPY_TPU_ASYNC_UPLOAD", "1") != "0":
-            self._upload_queue = queue.Queue(maxsize=3)
+            self._upload_queue = queue.Queue(maxsize=self.UPLOAD_DEPTH)
             self._upload_stop = threading.Event()
             self._upload_thread = threading.Thread(
                 target=self._uploadloop,
@@ -905,6 +941,7 @@ class BlockVideoLoader(VanillaVideoLoader):
         return None
 
     PREPROC_CHUNK = 16  # raw frames preprocessed in parallel per batch
+    UPLOAD_DEPTH = 3  # blocks queued for the uploader thread
 
     def _read_raw_chunk(self, want: int) -> list:
         """Sequentially decode up to `want` raw frames (decoder state is
@@ -934,6 +971,17 @@ class BlockVideoLoader(VanillaVideoLoader):
         self._leased_pool = (block_shape, pool, self._pinned)
         return pool
 
+    def _lease_ring(self, frame_shape: tuple) -> _StagingRing:
+        """Lease the staging ring of an in-memory feed: one buffer of
+        ``UPLOAD_DEPTH + 2`` block slots (the queued uploads, the one being
+        copied and the one being filled), at most ``_STAGE_RING_BYTES``
+        and at least two slots; pinned where the loader uploads to a
+        card."""
+        block = (self.block_frames,) + tuple(frame_shape)
+        n = max(2, min(self.UPLOAD_DEPTH + 2,
+                       _STAGE_RING_BYTES // int(np.prod(block))))
+        return _StagingRing(self._lease((n,) + block, 1)[0])
+
     def _rawblockloop(self):
         """Raw-block decode loop of the device preprocess: frames are
         copied verbatim into raw-size block buffers; the upload runs the
@@ -953,10 +1001,14 @@ class BlockVideoLoader(VanillaVideoLoader):
             if (isinstance(self.video, NumpyVideoWrapper)
                     and isinstance(src, np.ndarray) and src.ndim == 3
                     and src.dtype == np.uint8 and src.flags.c_contiguous):
-                # zero-copy path for in-memory gray sources: blocks are
-                # views of the source array (the upload copies them), so
-                # the host does no per-frame work at all: no decode, no
-                # merge copy, no pool
+                # in-memory gray sources: no decode, no merge; each
+                # block's frames are staged into a slot of the leased
+                # ring (torch's CPU copy on its intra-op pool, the lock
+                # released), so the upload reads pinned memory on a card
+                # and runs beside the consumer's work. The slot is
+                # refilled once its upload has completed; nothing of the
+                # caller's array is kept from one call to the next.
+                import torch
                 down2 = self._device_preproc_gate()
                 self._dev_preproc_fn = make_block_preprocess(
                     bool(down2), color=False)
@@ -964,10 +1016,20 @@ class BlockVideoLoader(VanillaVideoLoader):
                 start = self.video.get_video_pos()
                 total = min(self.iterations, src.shape[0] - start)
                 bf = self.block_frames
+                ring = self._lease_ring(src.shape[1:])
                 for a in range(start, start + total, bf):
                     if self.read_stopped:
                         break
-                    self._put_block(src[a:min(a + bf, start + total)])
+                    i = ring.take(lambda: self.read_stopped)
+                    if i is None:
+                        break
+                    frames = src[a:min(a + bf, start + total)]
+                    block = ring.slots[i][:len(frames)]
+                    with spans.span("loader.stage"):
+                        torch.from_numpy(block).copy_(
+                            torch.from_numpy(frames))
+                    spans.count("loader.stage_bytes", block.nbytes)
+                    self._put_block(block, ring.freer(i))
                 self.video.set_to(start + total)
                 return
             with spans.span("loader.read"):
@@ -1018,9 +1080,10 @@ class BlockVideoLoader(VanillaVideoLoader):
                     break
                 raw_left -= len(chunk)
             if n_in_block:
-                with merge:  # the tail block, out of the pool
-                    tail = block[:n_in_block].copy()
-                self._put_block(tail)
+                # the tail block from its slot: the upload has completed
+                # before the block goes on, and the pool is refilled only
+                # by a later lease, after release()
+                self._put_block(block[:n_in_block])
         except BaseException as exc:  # surface decode-thread failures
             self._thread_exc = exc
         finally:
@@ -1212,8 +1275,16 @@ class BlockVideoLoader(VanillaVideoLoader):
                         merge.__enter__()
                 merge.__exit__(None, None, None)
             if n_in_block:
-                with merge:  # the tail block, out of the pool
-                    tail = block[:n_in_block].copy()
+                # the tail block: in device-put mode from its slot (the
+                # upload has completed before the block goes on, and the
+                # pool is refilled only by a later lease, after release());
+                # in host mode a copy, since pop_block hands out the block
+                # itself and a later lease overwrites the pool
+                if self.device_put_mode:
+                    tail = block[:n_in_block]
+                else:
+                    with merge:
+                        tail = block[:n_in_block].copy()
                 self._put_block(tail)
             if self.keep_color_stacks and color_acc is not None:
                 self.color_stacks[merged_idx // RECHECK_CHUNK] = color_acc
@@ -1236,7 +1307,7 @@ class BlockVideoLoader(VanillaVideoLoader):
         self.logger.info(head + ", ".join(
             f"{k}={v}" for k, v in figures.items()))
 
-    def _put_block(self, block: np.ndarray) -> None:
+    def _put_block(self, block: np.ndarray, free=None) -> None:
         """Queue a completed block with indefinite backpressure: the
         consumer can legitimately stall (a first kernel build takes
         seconds), so a bounded put timeout must retry, not kill the decode
@@ -1245,13 +1316,14 @@ class BlockVideoLoader(VanillaVideoLoader):
         In device-put mode the queue carries (device tensor, n_real)
         pairs; the upload runs in the uploader thread when one is active
         (async-upload mode, overlapping decode with the copy) or inline
-        here otherwise. The span ``loader.qput`` times it (a wait, but for
-        an upload made here)."""
+        here otherwise, and ``free`` (a staging ring's slot) is called
+        once it has completed. The span ``loader.qput`` times it (a wait,
+        but for an upload made here)."""
         with self.spans.span("loader.qput", wait=True):
             if self.device_put_mode:
                 uq = self._upload_queue
                 if uq is not None:
-                    item = (block, block.shape[0])
+                    item = (block, free)
                     while True:
                         try:
                             uq.put(item, timeout=PUT_TIMEOUT)
@@ -1260,6 +1332,8 @@ class BlockVideoLoader(VanillaVideoLoader):
                             if self.read_stopped:
                                 raise
                 item = self._stage_block(block)
+                if free is not None:
+                    free()
             else:
                 item = block
             while True:
@@ -1343,7 +1417,10 @@ class BlockVideoLoader(VanillaVideoLoader):
                     continue  # the decode loop always delivers the sentinel
                 if item is None:
                     return
-                staged = self._stage_block(item[0])
+                block, free = item
+                staged = self._stage_block(block)
+                if free is not None:  # the copy out of the slot is done
+                    free()
                 with spans.span("loader.upload_put", wait=True):
                     while True:
                         try:

@@ -10,7 +10,8 @@ multiply-adds XLA fuses, and ``resize_bilinear`` with the antialiased
 triangle weights ``jax.image.resize`` builds.
 
 Integer arithmetic runs in int32 (PyTorch has few uint16/uint32 ops on
-CUDA); the largest intermediate, 32768 * 255 + 16384, fits.
+CUDA); the largest intermediate, 32768 * 255 + 16384, fits. The 2:1
+downscale's sum of four pixels fits int16.
 """
 
 from __future__ import annotations
@@ -73,15 +74,29 @@ def downscale2x_exact(block: torch.Tensor) -> torch.Tensor:
     """Exact cv2.resize INTER_LINEAR for the 2:1 case on [..., H, W(, C)]
     uint8: source coordinates fall on pixel-pair midpoints with weight
     1024/1024, and OpenCV's fixed-point combine reduces to
-    ((x00 + x01 + x10 + x11 + 2) >> 2). Height and width must be even."""
+    ((x00 + x01 + x10 + x11 + 2) >> 2). Height and width must be even.
+
+    The four taps are strided views of the block added in place into one
+    int16 sum (at most 4 * 255 + 2): a few passes over the output, with no
+    widened copy of the block and no reduction over pairs, since this runs
+    on the card beside the detector's step for every raw block."""
     ha = block.ndim - (3 if _has_channels(block) else 2)  # H axis
     h, w = block.shape[ha], block.shape[ha + 1]
     if h % 2 or w % 2:
         raise ValueError(f"2:1 downscale of an odd size {w}x{h}")
-    x = block.to(torch.int32)
-    x = x.unflatten(ha, (h // 2, 2)).sum(ha + 1)
-    x = x.unflatten(ha + 1, (w // 2, 2)).sum(ha + 2)
-    return ((x + 2) >> 2).to(torch.uint8)
+    # [..., h/2, 2 (row of the pair), w/2, 2 (column of the pair)(, C)]
+    x = block.unflatten(ha + 1, (w // 2, 2)).unflatten(ha, (h // 2, 2))
+
+    def tap(row: int, col: int) -> torch.Tensor:
+        return x.select(ha + 3, col).select(ha + 1, row)
+
+    s = tap(0, 0).to(torch.int16)
+    s += tap(0, 1)
+    s += tap(1, 0)
+    s += tap(1, 1)
+    s += 2
+    s >>= 2
+    return s.to(torch.uint8)
 
 
 def make_block_preprocess(down2: bool, color: bool

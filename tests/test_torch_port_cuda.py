@@ -416,6 +416,128 @@ def test_device_feed_on_card_equals_host_blocks(cuda_device, monkeypatch,
     assert pinned
 
 
+def _host_to_device_copies(prof, tmp_path):
+    """(kind, bytes) of every host-to-device copy in a profile's trace."""
+    import json
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], int(e.get("args", {}).get("bytes", 0)))
+            for e in events if e.get("cat") == "gpu_memcpy"
+            and e.get("name", "").startswith("Memcpy HtoD")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed", ["gray_1080p", "dldet_colour"])
+def test_detect_video_on_card_uploads_only_pinned_memory(
+        cuda_device, monkeypatch, tmp_path, feed):
+    """``detect_video`` on an in-memory 1920x1080 gray clip with a ragged
+    tail (m3det_normal, the staged in-memory feed) and on a colour clip
+    (dldet, one tail block out of the pool). In a profile of the card's
+    call every host-to-device copy of a frame or more reads pinned memory
+    and together they carry the loader's bytes, the gray clip's all
+    staged from the caller's array, the colour clip's none; the M3 call
+    copies nothing else from pageable memory (dldet's call does: the
+    model's warm-up input and a few scalars). The records equal the CPU
+    run's (dldet's as the recheck test holds them: category and frames
+    equal, points within 2 px, scores within 0.03)."""
+    from torch.profiler import ProfilerActivity, profile
+    gray = feed == "gray_1080p"
+    if gray:   # the raw upload and the device 2:1 preprocess
+        monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "force")
+        w, h, secs, preset = 1920, 1080, 4.36, "m3det_normal"   # 64 + 45
+    else:
+        monkeypatch.setenv("METDETPY_TPU_YOLO_HW", "96x96")
+        w, h, secs, preset = 320, 180, 6.5, "dldet"
+    frames = generate_meteor_video(
+        width=w, height=h, fps=25.0, duration_sec=secs,
+        meteors=[SynthMeteor(start_sec=1.2, end_sec=2.6,
+                             pt1=(int(w * 0.45), int(h * 0.25)),
+                             pt2=(int(w * 0.30), int(h * 0.55)))],
+        n_stars=60, noise_sigma=3.0, color=not gray)
+    assert frames.shape[0] % 64
+
+    def run(dev):
+        cfg = MainDetectCfg.from_json_file(
+            relative2abs_path(f"./config/{preset}.json"))
+        cfg.loader.wrapper = "NumpyVideoWrapper"
+        cfg.loader.resize = 960 if gray else None
+        cfg.loader.exp_time = "real-time" if gray else cfg.loader.exp_time
+        cfg.collector.recheck_cfg.switch = False
+        return detect_video(frames.copy(), None, cfg, work_mode="backend",
+                            device=dev)
+
+    run("cuda")     # the kernels built, the step captured, the ring leased
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = run("cuda")
+        torch.cuda.synchronize()
+    copies = _host_to_device_copies(prof, tmp_path)
+    perf = got.performance
+    blocks = [(k, n) for k, n in copies if n >= frames[0].nbytes]
+    assert blocks and all("Pinned" in k for k, _ in blocks), copies
+    assert sum(n for _, n in blocks) == perf["loader_h2d_bytes"]
+    if gray:
+        assert not [c for c in copies if "Pageable" in c[0]], copies
+    # dldet's exposure merges 12 frames (0.5 s at 25 fps) into one
+    assert perf["loader_h2d_bytes"] == (
+        frames.nbytes if gray else perf["frames"] // 12 * frames[0].nbytes)
+    assert perf.get("loader_stage_bytes", 0) == (frames.nbytes if gray
+                                                 else 0)
+    want = run("cpu")
+    if gray:
+        assert got.results and [r.to_dict() for r in got.results] == \
+            [r.to_dict() for r in want.results]
+        return
+    a_t = [t for rec in got.results for t in rec.target]
+    b_t = [t for rec in want.results for t in rec.target]
+    assert b_t and len(a_t) == len(b_t)
+    for a, b in zip(a_t, b_t):
+        assert a.category == b.category
+        assert (a.start_frame, a.last_activate_frame) == \
+            (b.start_frame, b.last_activate_frame)
+        assert max(abs(p - q) for p, q in zip([*a.pt1, *a.pt2],
+                                              [*b.pt1, *b.pt2])) <= 2
+        assert abs(a.score - b.score) <= 0.03
+
+
+@pytest.mark.cuda
+def test_staging_ring_on_card_under_a_slow_consumer(cuda_device,
+                                                    monkeypatch):
+    """A staging ring of the least depth (two pinned slots under a queue
+    of three) with a consumer that keeps the card busy and sleeps, over 44
+    blocks of 16 MB: every block on the card equals its source frames, so
+    no slot was refilled before the copy out of it had completed."""
+    import time
+    from metdetpy_tpu_torch.io import videoloader as tvl
+    from metdetpy_tpu_torch.io.videowrapper import NumpyVideoWrapper
+    monkeypatch.setattr(tvl, "_STAGE_RING_BYTES", 1)
+    frames = np.random.default_rng(SEED).integers(
+        0, 255, (44 * 16 - 5, 1080, 960), dtype=np.uint8)
+    ld = tvl.BlockVideoLoader(NumpyVideoWrapper, frames, resize_option=None,
+                              exp_option="real-time", merge_func="max",
+                              grayscale=True, block_frames=16,
+                              device_put=True, device="cuda")
+    assert ld._pinned
+    ld.start()
+    n, a = 0, 0
+    busy = torch.zeros((4096, 4096), device=cuda_device)
+    while (item := ld.pop_block()) is not None:
+        t, n_real = item
+        busy @ busy   # the default stream busy while the next copies run
+        time.sleep(0.003)
+        assert torch.equal(t[:n_real].cpu(),
+                           torch.from_numpy(frames[a:a + n_real]))
+        n, a = n + 1, a + n_real
+    perf = ld.spans.summary()
+    assert ld._leased_pool[0][0] == 2
+    ld.release()
+    assert n == 44 and a == len(frames)
+    assert perf["loader_stage_bytes"] == perf["loader_h2d_bytes"] \
+        == frames.nbytes
+
+
 @pytest.mark.cuda
 def test_batch_pipeline_on_card_matches_forward_batch(cuda_device):
     """The photo batch through the pinned upload and the device path gives

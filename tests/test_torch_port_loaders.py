@@ -9,6 +9,8 @@ Each package gets its own copy of an in-memory clip (the JAX loader writes
 colour stacks into a numpy source).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -176,7 +178,8 @@ def test_device_put_mode_stages_padded_tensors(monkeypatch, async_upload,
     (block_frames-frame tensor, n_real), the tail padded with its last
     frame, in order, the EOS behind the last upload; the bytes counted.
     With the device preprocess allowed, a frame at the runtime size takes
-    the raw loop (an in-memory source without any host copy)."""
+    the raw loop (an in-memory source staged into the pinned ring's
+    slots)."""
     monkeypatch.setenv("METDETPY_TPU_ASYNC_UPLOAD", async_upload)
     monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", preproc)
     frames = _slow_shutter_video(n_exposures=21, exp_frames=1)
@@ -266,7 +269,7 @@ def test_preproc_placement_probe(monkeypatch):
 @pytest.mark.parametrize("source", ["gray_memory", "gray_frames", "color"])
 def test_device_preprocess_stream_equals_host_path(monkeypatch, source):
     """The raw-block loop with the device preprocess gives the host path's
-    blocks: the zero-copy in-memory gray source, a gray source read frame
+    blocks: the staged in-memory gray source, a gray source read frame
     by frame, and a colour source (which goes to the host loop unless the
     colour switch is on; with it, on the device)."""
     monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "force")
@@ -275,7 +278,7 @@ def test_device_preprocess_stream_equals_host_path(monkeypatch, source):
     shape = (21, 32, 48, 3) if color else (21, 32, 48)
     frames = rng.integers(0, 255, shape, dtype=np.uint8)
     if source == "gray_frames":
-        frames = np.asfortranarray(frames)     # not the zero-copy layout
+        frames = np.asfortranarray(frames)     # not the staged layout
     kw = dict(resize_option=[24, 16], exp_option="real-time",
               merge_func="max", grayscale=True, block_frames=8)
     host = np.concatenate(_blocks(tvl.BlockVideoLoader(TNumpy, frames,
@@ -287,6 +290,146 @@ def test_device_preprocess_stream_equals_host_path(monkeypatch, source):
         np.testing.assert_array_equal(dev, host)
         want = "host" if (color and switch == "0") else "device"
         assert ld.stage_stats["placement"] == want
+
+
+def _raw_feed(frames, **kw):
+    """A device-put block loader on the CPU over an in-memory gray clip at
+    its own size (the raw loop, device preprocess), 8-frame blocks."""
+    kw = dict(dict(resize_option=None, exp_option="real-time",
+                   merge_func="max", grayscale=True, block_frames=8,
+                   device_put=True), **kw)
+    return tvl.BlockVideoLoader(TNumpy, frames, **kw)
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("n_frames", [16, 21, 1])
+def test_in_memory_feed_stages_blocks_equal_to_the_source(n_frames,
+                                                          threads):
+    """An in-memory gray feed in device-put mode is staged block by block
+    into the leased ring (whole blocks, a ragged tail, a one-frame clip;
+    the copy on one thread or several), and uploads what it staged: every
+    block equals the source's frames, and the staged bytes are the
+    uploaded bytes, the clip's."""
+    frames = np.random.default_rng(n_frames).integers(
+        0, 255, (n_frames, 64, 96), dtype=np.uint8)  # > torch's copy grain
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        ld = _raw_feed(frames)
+        blocks = _blocks(ld)
+    finally:
+        torch.set_num_threads(before)
+    perf = ld.spans.summary()
+    assert [len(b) for b in blocks] == [min(8, n_frames - a)
+                                        for a in range(0, n_frames, 8)]
+    np.testing.assert_array_equal(np.concatenate(blocks), frames)
+    assert perf["loader_h2d_bytes"] == perf["loader_stage_bytes"] \
+        == frames.nbytes
+    assert perf["loader_stage_calls"] == len(blocks)
+    assert ld.stage_stats["placement"] == "device"
+    # one lease of UPLOAD_DEPTH + 2 slots, back in the cache
+    key = ((tvl.BlockVideoLoader.UPLOAD_DEPTH + 2, 8, 64, 96), False)
+    assert tvl._POOL_CACHE.get(key)
+
+
+@pytest.mark.parametrize("async_upload", ["1", "0"])
+def test_staging_ring_refills_a_slot_only_after_its_upload(monkeypatch,
+                                                           async_upload):
+    """A ring of the least depth (two slots, under a queue of three) with
+    a slow upload and a slow consumer, over 44 blocks: every uploaded
+    block equals its source frames, so no slot was refilled before the
+    copy out of it had completed, and no slot was handed out twice."""
+    monkeypatch.setenv("METDETPY_TPU_ASYNC_UPLOAD", async_upload)
+    monkeypatch.setattr(tvl, "_STAGE_RING_BYTES", 1)
+    frames = np.random.default_rng(7).integers(0, 255, (44 * 8 - 3, 16, 24),
+                                               dtype=np.uint8)
+    ld = _raw_feed(frames)
+    held, fault = set(), []
+    take, freer = tvl._StagingRing.take, tvl._StagingRing.freer
+    stage = ld._stage_block
+
+    def checked_take(ring, stopped):
+        i = take(ring, stopped)
+        if i in held:
+            fault.append(i)
+        held.add(i)
+        return i
+
+    def checked_freer(ring, i):
+        free = freer(ring, i)
+
+        def f():
+            held.discard(i)
+            free()
+        return f
+
+    def slow_stage(block):
+        time.sleep(0.002)
+        return stage(block)
+
+    monkeypatch.setattr(tvl._StagingRing, "take", checked_take)
+    monkeypatch.setattr(tvl._StagingRing, "freer", checked_freer)
+    ld._stage_block = slow_stage
+    ld.start()
+    got = []
+    while (item := ld.pop_block()) is not None:
+        time.sleep(0.001)
+        got.append(item[0][:item[1]].clone().numpy())
+    ld.release()
+    assert ld._leased_pool is None
+    assert len(got) == 44 and not fault
+    np.testing.assert_array_equal(np.concatenate(got), frames)
+
+
+def test_decoded_colour_feed_stages_nothing_and_sends_its_tail_from_the_pool(
+        monkeypatch):
+    """A colour feed (the host loop) stages nothing from the caller's
+    memory; its ragged tail block goes to the upload as a view of its pool
+    slot, not a copy, and arrives equal to the host path's."""
+    frames = _slow_shutter_video(n_exposures=21, exp_frames=1, color=True)
+    kw = dict(exp_option="real-time", merge_func="max", grayscale=False,
+              block_frames=8)
+    host = _blocks(tvl.BlockVideoLoader(TNumpy, frames, **kw))
+    ld = tvl.BlockVideoLoader(TNumpy, frames, device_put=True, **kw)
+    sent = []
+    put = ld._put_block
+
+    def record(block, free=None):
+        sent.append((block, [np.shares_memory(block, s)
+                             for s in ld._leased_pool[1]]))
+        put(block, free)
+
+    ld._put_block = record
+    got = _blocks(ld)
+    perf = ld.spans.summary()
+    assert perf.get("loader_stage_bytes", 0) == 0
+    assert perf["loader_h2d_bytes"] == frames.nbytes
+    assert [len(b) for b, _ in sent] == [8, 8, 5]
+    assert all(any(shared) for _, shared in sent)
+    for a, b in zip(got, host):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_host_mode_tail_block_does_not_alias_the_pool():
+    """In host mode pop_block hands out the blocks themselves: the whole
+    ones are views of the pool, but the ragged tail is a copy, since the
+    next lease of the pool overwrites it."""
+    frames = _slow_shutter_video(n_exposures=21, exp_frames=1)
+    kw = dict(exp_option="real-time", merge_func="max", grayscale=True,
+              block_frames=8)
+    ld = tvl.BlockVideoLoader(TNumpy, frames, **kw)
+    ld.start()
+    blocks = []
+    while (item := ld.pop_block()) is not None:
+        blocks.append(item)
+    pool = ld._leased_pool[1]
+    ld.release()
+    tail = blocks[-1]
+    assert len(tail) == 5
+    assert not any(np.shares_memory(tail, s) for s in pool)
+    again = tvl.BlockVideoLoader(TNumpy, 255 - frames, **kw)
+    _blocks(again)   # leases and overwrites the same pool
+    np.testing.assert_array_equal(tail, frames[16:])
 
 
 W, H, FPS = 256, 144, 25.0

@@ -253,6 +253,9 @@ def test_detect_video_keeps_its_performance_keys_and_adds_init(frames):
     assert perf["loader_h2d_calls"] == perf["loader_upload_calls"] == blocks
     assert perf["loader_h2d_s"] >= perf["loader_upload_s"]
     assert perf["loader_h2d_bytes"] == frames.nbytes
+    # the in-memory source staged block by block into the pinned ring
+    assert perf["loader_stage_bytes"] == frames.nbytes
+    assert perf["loader_stage_calls"] == blocks
     assert "loader_read_s" not in perf and "loader_merge_s" not in perf
     assert perf["loader_loop_s"] >= perf["loader_qput_s"] - 2e-4
     assert perf["loader_qput_calls"] == blocks
