@@ -6,7 +6,8 @@ Everything that belongs to a cell is found by name: the cell's entry in
 mix (``traffic/<mix>.json``, whose ``generator`` names
 ``traffic/<generator>.py``); ``workloads/<cell>.json`` names the entry
 (``entries/<entry>.py``), the control and the limit of each number
-compared; each metric is ``metrics/<metric>.py``.
+compared (``judge.BUILT_IN`` or ``comparisons/<number>.py``); each metric
+is ``metrics/<metric>.py``.
 """
 
 from __future__ import annotations
@@ -108,10 +109,12 @@ class Run:
         self.bench = bench or bench_file()
         files = cell_files(self.bench, name)
         self.workload, self.config = files["workload"], files["config"]
-        model = self.config["detector"]["cfg"].get("model")
-        if model_hw and model:
+        if model_hw:
             # a smaller model input for both sides (the CPU tests)
-            model["input_hw"] = model_hw
+            for model in (self.config["detector"]["cfg"].get("model"),
+                          self.config["collector"]["recheck_cfg"]["model"]):
+                if model:
+                    model["input_hw"] = model_hw
         self.spec = files["spec"]
         self.traffic = dict(files["traffic"])
         self.traffic.update(traffic or {})
@@ -191,10 +194,15 @@ class Run:
         names = list(names or self.spec["limits"])
         if c.error:
             return {k: judge.MISSING for k in names}
-        return judge.numbers(
-            names, judge.targets(c.records, self.entry.px_scale),
+        out = judge.numbers(
+            [k for k in names if k in judge.BUILT_IN],
+            judge.targets(c.records, self.entry.px_scale),
             judge.frame_outputs(c.outputs), self.ref_targets,
             self.ref_frames, self.entry.score_threshold)
+        for k in names:
+            if k not in out:
+                out[k] = float(judge.comparison(k)(c, self.ref, self.entry))
+        return {k: out[k] for k in names}
 
     def reference(self) -> None:
         from benchmark import judge
@@ -203,7 +211,8 @@ class Run:
             import torch
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ref_records, self.ref_stats, rows = self.entry.reference()
+        self.ref = self.entry.reference()
+        ref_records, self.ref_stats, rows = self.ref
         self.reference_s = time.perf_counter() - t0
         self.ref_targets = judge.targets(ref_records, self.entry.px_scale)
         self.ref_frames = judge.frame_outputs(rows)

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """The readings that a cell's limits are set from, over many seeds in one
-process: for each seed, the comparison's numbers (``judge.numbers``) of the
-program's calls against the plain reference (``program``, the lower
-readings: a warm-up call and one call as the window makes them) and of the
-control against the reference (``control``, the upper readings: the
-reference in the lower precision that the cell's workload file names),
-with the records and per-frame outputs of each side. One JSON line a seed
-on standard output.
+process: for each seed, the comparison's numbers of the program's calls
+against the plain reference (``program``, the lower readings: the most of a
+warm-up call and the calls as the window makes them) and of the control
+against the reference (``control``, the upper readings: the reference in
+the lower precision that the cell's workload file names), with the records
+and per-frame outputs of each side. The numbers are the built-in ones
+(``judge.BUILT_IN``: ``output_gap``, and ``box_gap`` and ``box_missing``
+where a model's boxes reach the collector) and every other number the
+workload file's ``limits`` names. ``--calls`` sets the program's calls
+(2); ``calls_agree`` says whether their records were all alike. One JSON
+line a seed on standard output.
 
     python3 benchmark/control.py --workload m3_1080p_quiet --seeds 1,2,3
 
@@ -23,8 +27,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def readings(workload: str, seed: int, device: str, traffic=None,
-             program: bool = True, model_hw=None, control=None) -> dict:
+             program: bool = True, model_hw=None, control=None,
+             n_calls: int = 2) -> dict:
     from benchmark import cell, judge
+    from benchmark.comparisons.recheck_gap import targets
     run = cell.Run(workload, seed, 0, False, device, time.time(),
                    traffic=traffic, model_hw=model_hw)
     t0 = time.perf_counter()
@@ -32,9 +38,12 @@ def readings(workload: str, seed: int, device: str, traffic=None,
     out = {"seed": seed, "make_s": time.perf_counter() - t0}
     calls = []
     if program:
-        calls = [run._call(), run._call()]
+        calls = [run._call() for _ in range(n_calls)]
         out["call_s"] = [c.seconds for c in calls]
         out["errors"] = [c.error for c in calls if c.error]
+        got = [targets(c.records, run.entry.px_scale) for c in calls
+               if not c.error]
+        out["calls_agree"] = all(g == got[0] for g in got)
     t0 = time.perf_counter()
     run.reference()
     out["reference_s"] = time.perf_counter() - t0
@@ -42,11 +51,11 @@ def readings(workload: str, seed: int, device: str, traffic=None,
     ctl, _, ctl_rows = run.entry.reference(
         control=control or run.spec["control"])
     out["control_s"] = time.perf_counter() - t0
-    ctl_t = judge.targets(ctl, run.entry.px_scale)
     ctl_f = judge.frame_outputs(ctl_rows)
     ctl_call = cell.Call(0.0, 0.0, records=ctl, outputs=ctl_rows)
-    names = (["output_gap", "box_gap", "box_missing"]
-             if run.entry.score_threshold else ["output_gap"])
+    names = [k for k in judge.BUILT_IN
+             if k == "output_gap" or run.entry.score_threshold]
+    names += [k for k in run.spec["limits"] if k not in names]
     if calls:
         per = [run.gaps(c, names) for c in calls]
         out["program"] = {k: max(g[k] for g in per) for k in names}
@@ -55,10 +64,14 @@ def readings(workload: str, seed: int, device: str, traffic=None,
     out["targets"] = len(run.ref_targets)
     out["frames_with_lines"] = len(run.ref_frames)
     out["vote_points"] = run.ref_stats.get("vote_points")
-    out["records"] = {"reference": run.ref_targets, "control": ctl_t}
+    out["records"] = {
+        "reference": targets(run.ref[0], run.entry.px_scale),
+        "control": targets(ctl, run.entry.px_scale)}
     if calls and not calls[-1].error:
-        out["records"]["program"] = judge.targets(calls[-1].records,
+        out["records"]["program"] = targets(calls[-1].records,
                                                   run.entry.px_scale)
+    if calls and not out["calls_agree"]:
+        out["records"]["calls"] = got
 
     def rows(frames):
         return [[f, [float(v) for v in line], [float(v) for v in probs]]
@@ -83,6 +96,8 @@ def main(argv=None) -> int:
     p.add_argument("--no-program", action="store_true")
     p.add_argument("--control", default=None,
                    help="another control than the workload file's")
+    p.add_argument("--calls", type=int, default=2,
+                   help="the program's calls a seed")
     args = p.parse_args(argv)
     sys.path[0] = ROOT
     real = sys.stdout
@@ -91,7 +106,7 @@ def main(argv=None) -> int:
         try:
             r = readings(args.workload, int(s), args.device,
                          json.loads(args.traffic), not args.no_program,
-                         control=args.control)
+                         control=args.control, n_calls=args.calls)
         finally:
             sys.stdout = real
         print(json.dumps(r), flush=True)

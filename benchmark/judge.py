@@ -47,15 +47,25 @@ drop. It is the sum of two parts.
   least ``FLIP_IOU`` less (a suppression decided by a hair).
 
 Records and outputs come from either package: only their values are read.
+
+These three are built in (``BUILT_IN``). Any other number that a workload
+file's ``limits`` names is a file of its own, ``comparisons/<name>.py``,
+found by name as a metric is (``comparison``).
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import math
+import os
 
 import numpy as np
 
 MISSING = 10000.0
+BUILT_IN = ("output_gap", "box_gap", "box_missing")
+COMPARISONS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "comparisons")
 
 
 def targets(records, px_scale: float = 1.0) -> list[dict]:
@@ -230,6 +240,22 @@ def numbers(names, run_targets, run_frames, ref_targets, ref_frames,
         else:
             raise KeyError(f"no comparison named {name!r}")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def comparison(name: str):
+    """``compare(call, reference, entry)`` of ``comparisons/<name>.py``,
+    loaded by its path: the number ``name`` of one call (its ``records``
+    and per-frame ``outputs``) against the reference's (records, stats,
+    rows), as a float. KeyError for a name with no file."""
+    path = os.path.join(COMPARISONS, name + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no comparison named {name!r}")
+    spec = importlib.util.spec_from_file_location(
+        "benchmark.comparisons." + name.replace(".", "__"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.compare
 
 
 def check(gaps: dict, limits: dict) -> dict:

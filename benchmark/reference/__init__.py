@@ -6,14 +6,16 @@ analysed size and the exposure's max-merge), the detector (``m3``: the
 frozen M3 block step, block by block with its carries; ``dl``: YOLOv5s on
 the window-max stacks), the collector's input of every frame the run feeds
 it (each frame with a line or a box, and one frame a second of analysed
-time besides), and the collector's records (the frozen host collector).
+time besides), and the collector's records (the frozen host collector;
+with the configuration's recheck on, its exporter rechecks each clip as
+``recheck`` sets out, and ``stats["recheck"]`` holds its margins).
 It imports nothing of the program: its frozen parts are under ``frozen/``.
 
 ``control`` makes it the control, in the nearest precision below the
 configuration's: ``"bfloat16"`` computes the M3 Hough vote's rho in
 bfloat16 (the step is float32); ``"int8"`` or ``"float8"`` rounds every
 YOLOv5s body convolution's input and kernel to int8 or float8 e4m3, one
-scale a tensor (the body is bfloat16).
+scale a tensor (the body is bfloat16), the detector's and the recheck's.
 """
 
 from __future__ import annotations
@@ -113,8 +115,21 @@ def detect(clip: np.ndarray, cfg: dict, device: str, fps: float,
                            eq_int_fps=math.floor(eq_fps), exp_time=exp_time,
                            runtime_size=[aw, ah], raw_size=[w, h],
                            positive_category_list=positive)
-    collector = MeteorCollector(_namespace(cfg["collector"]), params)
     num_cls = utils.get_num_class()
+    dl_control = control if control != "bfloat16" else None
+    exporter = None
+    if cfg["collector"]["recheck_cfg"]["switch"]:
+        from . import dl
+        from .recheck import RecheckExporter, Stacks
+        model_cfg = cfg["collector"]["recheck_cfg"]["model"]
+        meteor_cfg = cfg["collector"]["meteor_cfg"]
+        exporter = RecheckExporter(
+            params, meteor_cfg["max_interval"] * fps, meteor_cfg["det_thre"],
+            Stacks(clip, (aw, ah), e, dev),
+            dl.YOLO(model_cfg, num_cls - 2, dev, dl_control),
+            float(model_cfg["nms_thre"]))
+    collector = MeteorCollector(_namespace(cfg["collector"]), params,
+                                exporter)
     det = cfg["detector"]
     n_merged = clip.shape[0] // e
     rows = []
@@ -140,7 +155,7 @@ def detect(clip: np.ndarray, cfg: dict, device: str, fps: float,
             elif det["name"] == "MLDetector":
                 from . import dl
                 model = dl.YOLO(det["cfg"]["model"], num_cls - 2, dev,
-                                control if control != "bfloat16" else None)
+                                dl_control)
                 n = max(int(det["window_sec"] * eq_fps), 1)
                 stacks = dl.window_max(analysed(clip, cfg, dev, e, 0,
                                                 n_merged), n)
@@ -152,7 +167,10 @@ def detect(clip: np.ndarray, cfg: dict, device: str, fps: float,
         kernels.CONTROL = None
         kernels.VOTE_POINTS.clear()
     collector.clear()
-    return collector.met_exporter.meteor_list, {"vote_points": points}, rows
+    stats = {"vote_points": points}
+    if exporter is not None:
+        stats["recheck"] = exporter.stats
+    return collector.met_exporter.meteor_list, stats, rows
 
 
 class _namespace:

@@ -1,5 +1,7 @@
-"""The port's meteor collector (its recheck and drawing left out): greedy
-track association, lifecycle management and probability scoring.
+"""The port's meteor collector (its drawing left out): greedy track
+association, lifecycle management and probability scoring. It exports
+through the exporter it is given (the frozen one, recheck off, by
+default).
 
 Semantics parity with reference MeteorCollector (MetLib/collector.py:372-631)
 including its quirks (documented inline) -- bit-compatible MDRF output is a
@@ -21,7 +23,8 @@ from .series import MeteorSeries
 class MeteorCollector:
     """Aggregates per-frame line/box responses into scored event series."""
 
-    def __init__(self, collector_cfg, runtime_param: RuntimeParams) -> None:
+    def __init__(self, collector_cfg, runtime_param: RuntimeParams,
+                 exporter=None) -> None:
         mcfg = collector_cfg.meteor_cfg
         self.min_len = mcfg.min_len
         self.max_interval = mcfg.max_interval * runtime_param.fps
@@ -48,7 +51,8 @@ class MeteorCollector:
         self.active_meteor: list[MeteorSeries] = [self._sentinel]
         self.waiting_meteor: list[MeteorSeries] = []
 
-        self.met_exporter = MetExporter(runtime_param, self.max_interval)
+        self.met_exporter = exporter or MetExporter(runtime_param,
+                                                    self.max_interval)
 
     # ------------------------------------------------------------------
 
@@ -70,7 +74,7 @@ class MeteorCollector:
             if self.cur_frame - ms.last_activate_frame >= self.max_interval:
                 prob = self.prob_meteor(ms)
                 if prob > self.det_thre / 2 and prob != self.det_thre:
-                    if ms.cate not in (
+                    if self.met_exporter.recheck or ms.cate not in (
                             Name2Label.OTHERS(), Name2Label.PLANE_SATELLITE):
                         to_wait.append(ms)
                     else:

@@ -2,7 +2,8 @@
 close targets into one record, marks dropped targets DROPPED and maps the
 coordinates back to the clip's size. The port runs it on a thread of its
 own; here each batch is exported when it is handed over, in the same
-order.
+order. (``benchmark.reference.recheck.RecheckExporter`` is the one with
+the recheck on.)
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ def scale_to(pt: list[int], rescale: list[float]) -> list[int]:
 class MetExporter:
     DROP_FLAG = "DROP_FLAG"
     ACTIVE_FLAG = "ACTIVE_FLAG"
+    recheck = False
 
     def __init__(self, runtime_param: RuntimeParams,
                  max_interval: float) -> None:

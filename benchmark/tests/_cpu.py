@@ -33,3 +33,40 @@ def small_run(cell_name: str, seed: int = SEED, trace: bool = False):
 def bench() -> dict:
     with open(os.path.join(ROOT, "BENCHMARK.json"), encoding="utf-8") as f:
         return json.load(f)
+
+
+# a draft cell of the shipped m3det_normal with its recheck on, on the busy
+# mix: its configuration and workload file are written outside the
+# checkout, and named by their paths
+DRAFT_MIX = "busy_1080p_color_30s"
+DRAFT_SMALL = dict(SMALL, seconds=6.0, meteor_start_s=[1.0, 4.0],
+                   plane_seconds=[3.0, 5.0])
+DRAFT_LIMITS = {"line_gap": 5.0, "recheck_gap": 2.0}
+
+
+def draft(draft_dir) -> tuple[str, dict]:
+    """(the draft cell's name, BENCHMARK.json with the cell and its
+    configuration added). The configuration and the workload file are
+    written under ``draft_dir``; the cell's name is its workload file's
+    path less ``.json``, which ``cell.cell_files`` joins to nothing."""
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "m3det_normal.json"), encoding="utf-8") as f:
+        conf = json.load(f)
+    conf["collector"]["recheck_cfg"]["switch"] = True
+    conf["reduced"] = ["loader"]
+    del conf["assumed"]["collector.recheck_cfg.switch"]
+    conf_file = os.path.join(draft_dir, "m3det_normal_recheck.json")
+    with open(conf_file, "w", encoding="utf-8") as f:
+        json.dump(conf, f)
+    name = os.path.join(draft_dir, "m3_1080p_recheck_draft")
+    with open(name + ".json", "w", encoding="utf-8") as f:
+        json.dump({"entry": "detect_video", "control": "int8",
+                   "limits": DRAFT_LIMITS}, f)
+    b = bench()
+    b["configs"].append({"name": "m3det_normal_recheck",
+                         "source": conf["source"], "file": conf_file,
+                         "reduced": ["loader"], "why": "the recheck on"})
+    b["workloads"].append({"name": name, "config": "m3det_normal_recheck",
+                           "traffic": DRAFT_MIX, "chips": 1,
+                           "why": "a draft"})
+    return name, b

@@ -26,4 +26,8 @@ def test_a_short_run_on_the_card(cell_name):
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"] is True, line
     assert line["device"]["platform"] == "gpu"
-    assert line["metrics"]["frames_per_s"]["value"] > 0
+    from benchmark import cell
+    want = {m["name"] for m in cell.metrics_of(cell.bench_file(), cell_name,
+                                                False)}
+    assert set(line["metrics"]) == want
+    assert all(m["value"] > 0 for m in line["metrics"].values())

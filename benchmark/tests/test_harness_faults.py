@@ -73,3 +73,26 @@ def test_a_fault_makes_the_run_not_correct(cell_name, plant, monkeypatch):
     assert out["correct"] is False
     assert out["failed"] == out["attempted"] >= 1
     assert any(c["value"] > c["limit"] for c in out["checks"].values())
+
+
+def test_a_recheck_answer_altered_makes_a_draft_recheck_cell_not_correct(
+        tmp_path, monkeypatch):
+    """The recheck's model answers with its classes rolled by one (each
+    box's largest probability put under another class): ``recheck_gap``
+    of a draft recheck cell reads the flipped categories."""
+    import time
+    from _cpu import DRAFT_SMALL, MODEL_HW, SEED, draft
+    from benchmark import cell
+    from metdetpy_tpu_torch.models import yolo
+    orig = yolo.YOLOModel.forward
+
+    def rolled(self, x):
+        pos, cls = orig(self, x)
+        return pos, np.roll(cls, 1, axis=1)
+    monkeypatch.setattr(yolo.YOLOModel, "forward", rolled)
+    name, b = draft(str(tmp_path))
+    out = cell.Run(name, SEED, 0, False, "cpu", time.time(), bench=b,
+                   traffic=DRAFT_SMALL, model_hw=MODEL_HW).execute()
+    assert out["correct"] is False
+    assert out["checks"]["recheck_gap"]["value"] > out["checks"][
+        "recheck_gap"]["limit"]

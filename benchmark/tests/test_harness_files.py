@@ -55,7 +55,7 @@ def test_configs():
 
 
 def test_workloads_found_by_name():
-    from benchmark import cell, reference
+    from benchmark import cell, judge, reference
     b = bench()
     names = [w["name"] for w in b["workloads"]]
     assert len(set(names)) == len(names)
@@ -74,7 +74,10 @@ def test_workloads_found_by_name():
         entry = importlib.import_module("benchmark.entries." + spec["entry"])
         assert hasattr(entry, "Entry")
         assert spec["control"] in reference.CONTROLS
-        assert set(spec["limits"]) <= {"output_gap", "box_gap"}
+        for number in spec["limits"]:
+            # a built-in comparison, or one found by name
+            assert number in judge.BUILT_IN or callable(
+                judge.comparison(number))
     assert sum(w["chips"] == 4 for w in b["workloads"]) <= max(
         1, len(names) // 4)
 
@@ -111,6 +114,19 @@ def test_metrics_found_by_name():
     for c in cells:
         assert len(cell.metrics_of(b, c, False)) >= 2
         assert cell.metrics_of(b, c, True)
+
+
+def test_each_metric_moves_one_that_its_cells_report():
+    """A per-layer metric's ``moves`` is an end-to-end metric of every cell
+    that the per-layer metric lists."""
+    b = bench()
+    cells = {w["name"] for w in b["workloads"]}
+    e2e = {m["name"]: set(m.get("workloads", cells))
+           for m in b["end_to_end"]}
+    for m in b["per_layer"]:
+        assert set(m.get("workloads", cells)) <= e2e[m["moves"]], m["name"]
+    for m in b["end_to_end"]:
+        assert set(m.get("workloads", cells)) <= cells
 
 
 @pytest.mark.parametrize("name", ["m3_1080p_quiet", "dldet_1080p_quiet"])

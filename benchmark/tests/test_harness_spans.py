@@ -28,6 +28,16 @@ def test_init_ms_per_call_is_the_mean_of_the_untraced_calls():
     assert read(_run([])) is None
 
 
+def test_dldet_frames_per_s_reads_the_untraced_calls():
+    read = metric_module("dldet.frames_per_s").read
+    run = _run([{}, {}, {}], traced={1})
+    for c, frames, seconds in zip(run.calls, (500, 500, 500),
+                                  (0.5, 9.0, 0.75)):
+        c.frames, c.t1 = frames, seconds
+    assert read(run) == pytest.approx(1000 / 1.25)
+    assert read(_run([])) is None
+
+
 def test_merge_ms_per_block_adds_the_preprocess():
     read = metric_module("loader.merge_ms_per_block").read
     run = _run([{"loader_merge_s": 0.4, "loader_preproc_s": 0.1,

@@ -20,7 +20,8 @@ def _mix(name):
 
 
 @pytest.mark.parametrize("mix", ["quiet_1080p_gray_60s",
-                                 "color_1080p_20s_3meteors"])
+                                 "color_1080p_20s_3meteors",
+                                 "busy_1080p_color_30s"])
 def test_deterministic_by_seed(mix):
     p = _mix(mix)
     seed = 2**31 + 12345  # more than 32 signed bits hold
