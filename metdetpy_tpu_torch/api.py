@@ -62,9 +62,10 @@ def detect_video(video_name: str, mask_name: Optional[str],
     spans of every thread (``profiling.maybe_torch_trace``).
 
     One span recorder (``profiling.StageTimer``) times the call, from its
-    entry on: this thread's spans, and those of the loader's threads and of
-    the detector, whose constructors it is handed to as ``spans``. Their
-    totals are the MDRF ``performance``.
+    entry on: this thread's spans, and those of the loader's threads, of
+    the detector and of the collector's exporter thread, whose constructors
+    it is handed to as ``spans``. Their totals are the MDRF
+    ``performance``.
     """
     dev = resolve_device(device)
     set_default_logger(debug_mode, work_mode)
@@ -184,7 +185,7 @@ def detect_video(video_name: str, mask_name: Optional[str],
                                         video_loader=recheck_loader,
                                         logger=logger,
                                         stack_provider=stack_provider,
-                                        device=dev)
+                                        device=dev, spans=spans)
 
         visual_manager = OpenCVMetVisu(exp_time=rt_param.exp_time,
                                        resolution=video_loader.runtime_size,
@@ -235,9 +236,11 @@ def detect_video(video_name: str, mask_name: Optional[str],
             # a wait: the loader's threads and the exporter's end
             with spans.span("api.release", wait=True):
                 video_loader.release()
-                # joins the exporter's thread; an exception of the recheck
-                # raised there ends the call here
-                collector.clear()
+                # joins the exporter's thread (the recheck work left at
+                # the loop's end); an exception of the recheck raised
+                # there ends the call here
+                with spans.span("api.exporter_join", wait=True):
+                    collector.clear()
         finally:
             if recheck_loader is not None:
                 recheck_loader.release()

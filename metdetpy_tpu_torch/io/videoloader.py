@@ -773,7 +773,9 @@ class BlockVideoLoader(VanillaVideoLoader):
 
     With ``keep_color_stacks=True`` the thread additionally maintains a
     color max-stack per RECHECK_CHUNK merged frames, giving the recheck
-    stage its stacked images without a second decode of the video.
+    stage its stacked images without a second decode of the video (span
+    ``loader.color_stack``, inside ``loader.merge``; counter
+    ``loader.color_stack_bytes``, the colour frames merged).
     """
 
     def __init__(self, *args: Any, block_frames: Optional[int] = None,
@@ -1251,20 +1253,23 @@ class BlockVideoLoader(VanillaVideoLoader):
                     if self.keep_color_stacks:
                         cgroup = pending_color[:e]
                         pending_color = pending_color[e:]
-                        # a copy: an in-memory source hands out views of
-                        # the caller's frames, which the in-place maxima
-                        # below must not write to
-                        color = np.array(cgroup[0])
-                        for f in cgroup[1:]:
-                            _u8_max_inplace(color, f)
-                        if color_acc is None:
-                            color_acc = color
-                        else:
-                            _u8_max_inplace(color_acc, color)
-                        if (merged_idx + 1) % RECHECK_CHUNK == 0:
-                            self.color_stacks[merged_idx // RECHECK_CHUNK] \
-                                = color_acc
-                            color_acc = None
+                        with spans.span("loader.color_stack"):
+                            # a copy: an in-memory source hands out views
+                            # of the caller's frames, which the in-place
+                            # maxima below must not write to
+                            color = np.array(cgroup[0])
+                            for f in cgroup[1:]:
+                                _u8_max_inplace(color, f)
+                            if color_acc is None:
+                                color_acc = color
+                            else:
+                                _u8_max_inplace(color_acc, color)
+                            if (merged_idx + 1) % RECHECK_CHUNK == 0:
+                                self.color_stacks[
+                                    merged_idx // RECHECK_CHUNK] = color_acc
+                                color_acc = None
+                        spans.count("loader.color_stack_bytes",
+                                    e * color.nbytes)
                     merged_idx += 1
                     if n_in_block == self.block_frames:
                         merge.__exit__(None, None, None)

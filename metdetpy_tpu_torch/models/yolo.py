@@ -354,6 +354,8 @@ class YOLOModel:
             os.environ.get("METDETPY_TPU_YOLO_COMPACT_CAP", 512))
         self.nc = get_num_class() - 2  # without DROPPED/OTHERS
         self.hw_ratio = self.h / self.w
+        # the tiles of the last ``forward``'s plan, once it has returned
+        self.last_tiles = 0
 
         self.model = self._load_weights(weight_path, variables)
         if warmup:
@@ -556,12 +558,14 @@ class YOLOModel:
     def forward(self, x: np.ndarray):
         """Multiscale inference on one [H, W(, C)] uint8/uint16 image
         (grayscale expanded, alpha dropped). An exception in any pyramid
-        level propagates: no level is skipped."""
-        out = self._forward(x)
+        level propagates: no level is skipped. ``last_tiles`` is then the
+        number of tiles its plan ran."""
+        out, self.last_tiles = self._forward(x)
         _count("forward")
         return out
 
     def _forward(self, x: np.ndarray):
+        """((boxes, class scores), the tiles of the plan that ran)."""
         assert isinstance(x, np.ndarray) and x.ndim in (2, 3)
         x = _ensure_3ch(x)
         h, w, c = x.shape
@@ -571,7 +575,8 @@ class YOLOModel:
 
         if self.multiscale_pred == 0:
             pred = self._batched_forward(x[None])[0]
-            return self._postprocess_single(pred, (w / self.w, h / self.h))
+            return self._postprocess_single(pred,
+                                            (w / self.w, h / self.h)), 1
 
         transpose_flag, levels = self._plan_tiles(h, w)
         if transpose_flag:
@@ -595,7 +600,7 @@ class YOLOModel:
             pos, cls = pos[idx], cls[idx]
         if transpose_flag:
             pos = pos[:, [1, 0, 3, 2]]
-        return pos, cls
+        return (pos, cls), sum(len(tiles) for tiles in levels)
 
     MAX_BATCH_CANDIDATES = 128  # per-image candidate budget for batched NMS
 

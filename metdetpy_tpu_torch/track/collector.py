@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..log import BaseMetLog
+from ..profiling import StageTimer
 from ..structs import CollectorCfg, MDTarget, RuntimeParams
 from ..utils import Name2Label, create_prob_func, frame2ts
 from .exporter import MetExporter
@@ -20,12 +21,15 @@ from .series import MeteorSeries
 
 
 class MeteorCollector:
-    """Aggregates per-frame line/box responses into scored event series."""
+    """Aggregates per-frame line/box responses into scored event series.
+    ``spans`` (a ``profiling.StageTimer``) goes to the exporter, whose
+    thread it times."""
 
     def __init__(self, collector_cfg: CollectorCfg,
                  runtime_param: RuntimeParams, video_loader,
                  logger: BaseMetLog, stack_provider=None,
-                 recheck_model=None, device: str = "cuda") -> None:
+                 recheck_model=None, device: str = "cuda",
+                 spans: Optional[StageTimer] = None) -> None:
         mcfg = collector_cfg.meteor_cfg
         self.min_len = mcfg.min_len
         self.max_interval = mcfg.max_interval * runtime_param.fps
@@ -58,7 +62,7 @@ class MeteorCollector:
             video_loader=video_loader, logger=logger,
             max_interval=self.max_interval, det_thre=self.det_thre,
             stack_provider=stack_provider, recheck_model=recheck_model,
-            device=device)
+            device=device, spans=spans)
 
     # ------------------------------------------------------------------
 

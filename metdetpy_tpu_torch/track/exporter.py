@@ -15,6 +15,13 @@ available for the per-frame loaders. The recheck model is the port's
 weight file, no card) raises out of the constructor, and an exception in
 the export thread (the recheck's forward included) is kept and raised again
 by ``join``.
+
+The call's span recorder (``spans``, a ``profiling.StageTimer``) times the
+export thread: ``exporter.wait`` (blocked on the queue), ``exporter.recheck``
+(a batch's recheck), inside it ``exporter.stack`` (the stack provider) and
+``recheck.forward`` (the model's forward of a clip's stack), with the
+counters ``recheck.clips``, ``recheck.tiles`` (from the tile plan the
+forward ran) and ``exporter.stack_bytes``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..log import BaseMetLog
+from ..profiling import StageTimer
 from ..structs import Box, MDTarget, RecheckCfg, RuntimeParams, SingleMDRecord
 from ..utils import Name2Label, box_matching, get_id2name, get_name2id
 from .features import calc_brightness_with_roi
@@ -46,7 +54,9 @@ class MetExporter:
                  video_loader, logger: BaseMetLog, max_interval: float,
                  det_thre: float,
                  stack_provider: Optional[StackProvider] = None,
-                 recheck_model=None, device: str = "cuda") -> None:
+                 recheck_model=None, device: str = "cuda",
+                 spans: Optional[StageTimer] = None) -> None:
+        self.spans = StageTimer() if spans is None else spans
         self.queue: "queue.Queue[tuple[str, list[MDTarget]]]" = queue.Queue()
         self.recheck = recheck_cfg.switch
         self.positive_cates = list(runtime_param.positive_category_list)
@@ -100,9 +110,13 @@ class MetExporter:
             self.logger.error(f"export thread ended by {e!r}")
             self._loop_error = e
 
+    def _get(self) -> tuple[str, list[MDTarget]]:
+        with self.spans.span("exporter.wait", wait=True):
+            return self.queue.get()
+
     def _loop(self) -> None:
         id2name = get_id2name()
-        flag, data = self.queue.get()
+        flag, data = self._get()
         while flag in (self.ACTIVE_FLAG, self.DROP_FLAG):
             if flag == self.DROP_FLAG:
                 for ms_attr in data:
@@ -115,7 +129,9 @@ class MetExporter:
                 final_list = self._merge_clips(data)
                 drop_list: list[MDTarget] = []
                 if self.recheck:
-                    final_list, drop_list = self.recheck_progress(final_list)
+                    with self.spans.span("exporter.recheck"):
+                        final_list, drop_list = self.recheck_progress(
+                            final_list)
                 for met in final_list:
                     met = self.rescale(met)
                     self.meteor_list.append(met)
@@ -125,7 +141,7 @@ class MetExporter:
                     rec = self.rescale(rec)
                     self.meteor_list.append(rec)
                     self.logger.dropped(rec.to_json(full=False))
-            flag, data = self.queue.get()
+            flag, data = self._get()
         if flag != self.END_FLAG:
             raise KeyError(f"Unexpected exporter flag {flag}.")
 
@@ -181,8 +197,9 @@ class MetExporter:
             if record.end_frame is None:
                 self.logger.error(f"Invalid output clip: {record}")
                 continue
-            stacked = self.stack_provider(record.start_frame,
-                                          record.end_frame + 1)
+            with self.spans.span("exporter.stack"):
+                stacked = self.stack_provider(record.start_frame,
+                                              record.end_frame + 1)
             if stacked is None:
                 self.logger.error(
                     "Failed to get stacked img; clip passes through "
@@ -190,7 +207,11 @@ class MetExporter:
                     f"{record.end_frame}).")
                 new_final.append(record)
                 continue
-            bbox_list, score_list = self.recheck_model.forward(stacked)
+            self.spans.count("exporter.stack_bytes", stacked.nbytes)
+            with self.spans.span("recheck.forward"):
+                bbox_list, score_list = self.recheck_model.forward(stacked)
+            self.spans.count("recheck.clips", 1)
+            self.spans.count("recheck.tiles", self.recheck_model.last_tiles)
             raw_boxes = [[*t.pt1, *t.pt2] for t in record.target]
             matched_pairs = box_matching(bbox_list, raw_boxes)
             fixed: list[MDTarget] = []
