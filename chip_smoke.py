@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. Build: print the card's name and power limit, build the four CUDA
+1. Build: print the card's name and power limit, build the five CUDA
    kernels from ``metdetpy_tpu_torch/csrc`` and print what ``ptxas``
    reports for each (registers, shared memory, spills).
 2. Kernels: call each kernel's wrapper on the card at the shapes the main
@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    vote is also held and timed on a raster-ordered point list (a streak
    and salt noise, compacted as the main path compacts them), where
    neighbours in the list share rho bins; the pick is timed beside an
-   empty kernel of its grid. Then the ragged cases of
-   ``metdetpy_tpu_torch.ops.kernel_cases`` for both, exact, untimed.
+   empty kernel of its grid; the peak ladder runs on the vote's output.
+   Then the ragged cases of ``metdetpy_tpu_torch.ops.kernel_cases`` for
+   the vote, the pick and the peak ladder (with ``find_peaks`` on each peak
+   case), exact, untimed.
 3. End to end: a 960x540, 25 fps, 12 s synthetic colour clip with one
    meteor through ``metdetpy_tpu_torch.api.detect_video(..., device="cuda")``
    with the m3det_normal preset as shipped, recheck on (only the frame
@@ -57,7 +59,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    uploaded, the exact 2:1 downscale run by the uploader), once with the
    loader's upload off (host preprocess, the detector uploads), once
    placed by the loader's probe; the MDRFs equal and equal to the CPU's,
-   the placement as asked, bytes uploaded by the loader, all four kernels
+   the placement as asked, bytes uploaded by the loader, all five kernels
    launched in each run.
 9. Loaders: ``m3det_normal`` (recheck on) at 960x540 through the Vanilla,
    Thread and Process loaders against the Block loader's MDRF of the same
@@ -156,10 +158,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    as shipped, recheck on, real-time) with a fresh ``HOME`` from a working
    directory outside the repo on the default device: its MDRF ``results``
    equal the in-tree main entry's (``metdetpy_tpu_torch.__main__.main``,
-   in-process, all four kernels launched), the fresh cache holds the four
+   in-process, all five kernels launched), the fresh cache holds the five
    kernel libraries under the in-tree build's hashed names, cold and warm
    seconds, and a third run with ``METDETPY_TPU_TRACE_DIR`` set whose
-   trace holds a device event for each launch of the four kernels. (b)
+   trace holds a device event for each launch of the five kernels. (b)
    ``detect_video`` on the same clip untraced and traced: records and
    launches equal, frames/s of both, the trace parses and holds a device
    event for each launch of each kernel, their summed device ms beside
@@ -242,6 +244,7 @@ FILES = os.path.join(REPO, ".smoke_files")
 W, H, FPS = 960, 540, 25.0
 N_WIN, T_BLOCK, FRAME_CHUNK = 25, 64, 8
 MAX_POINTS, MAX_PEAKS = 8192, 64
+HOUGH_THRESHOLD = 10        # config/m3det_normal.json hough_threshold
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 PALLAS = "metdetpy_tpu/ops/pallas_kernels.py"
@@ -372,12 +375,16 @@ def raster_vote_input(dev: torch.device):
 def kernel_cases(dev: torch.device) -> dict:
     """{name: (wrapper, plain version, main-path args, source, TPU kernel,
     (bound ms, bound by))} for each kernel."""
+    from metdetpy_tpu_torch.ops import hough
     from metdetpy_tpu_torch.ops import kernels as K
     wd, mbc, vote, pick, counts, geom = kernel_inputs(dev)
     hw = H * W
     n_valid = int(counts.sum())
     inside = (geom.r >= 0) & (geom.r < pick[0].shape[-1])
     n_pick = int(inside.sum())
+    # the vote kernel's chunk of votes, with the main path's threshold
+    peaks = (K.hough_vote(*vote), HOUGH_THRESHOLD,
+             hough._peak_cuts(HOUGH_THRESHOLD, dev))
     return {
         "window_diff": (
             K.window_diff, K.window_diff_plain,
@@ -413,6 +420,14 @@ def kernel_cases(dev: torch.device) -> dict:
             # column whose row lies in the plane; i32 out; no arithmetic
             bound(pick[1].numel() * 4 + pick[2].numel() + n_pick
                   + pick[1].numel() * 4, 0)),
+        "peak_ladder": (
+            K.peak_ladder, K.peak_ladder_plain, peaks,
+            "metdetpy_tpu_torch/csrc/peak_ladder.cu",
+            "metdetpy_tpu/ops/hough.py:220 (_find_peaks, plain XLA)",
+            # the chunk's i32 votes in, a u8 mask out (and the tiny rung
+            # count); per bin: the 3x3 max (8) and the test (2)
+            bound(peaks[0].numel() * 5 + (len(peaks[2]) + 1)
+                  * FRAME_CHUNK * 4, peaks[0].numel() * 10)),
     }
 
 
@@ -520,8 +535,10 @@ def phase_kernels(dev: torch.device) -> dict:
 
 
 def phase_ragged(dev: torch.device) -> None:
-    """hough_vote and walk_pick against their plain versions on the ragged
-    cases, exact."""
+    """hough_vote, walk_pick and peak_ladder against their plain versions
+    on the ragged cases, exact; find_peaks on the card against its plain
+    route on the peak cases."""
+    from metdetpy_tpu_torch.ops import hough
     from metdetpy_tpu_torch.ops import kernel_cases as C
     from metdetpy_tpu_torch.ops import kernels as K
     for case in C.VOTE_CASES:
@@ -530,6 +547,18 @@ def phase_ragged(dev: torch.device) -> None:
     for case in C.PICK_CASES:
         check_exact(f"walk_pick case {case[0]}", K.walk_pick,
                     K.walk_pick_plain, C.pick_case(case, dev, SEED))
+    for case in C.PEAK_CASES:
+        args = C.peak_case(case, dev, SEED)
+        K.reset_launch_counts()
+        check_exact(f"peak_ladder case {case[0]}", K.peak_ladder,
+                    K.peak_ladder_plain, args)
+        if K.LAUNCHES["peak_ladder"] != 1:
+            fail(f"peak_ladder case {case[0]}: "
+                 f"{K.LAUNCHES['peak_ladder']} launches, expected 1")
+        check_exact(f"find_peaks case {case[0]}",
+                    lambda v, t, _: hough.find_peaks(v, t, C.PEAK_MAX),
+                    lambda v, t, _: hough.find_peaks_plain(v, t, C.PEAK_MAX),
+                    args)
     for case in C.WINDOW_DIFF_STREAM_CASES:
         K.reset_launch_counts()
         check_exact(f"window_diff stream case {case[0]}", K.window_diff,
@@ -539,7 +568,8 @@ def phase_ragged(dev: torch.device) -> None:
             fail(f"window_diff stream case {case[0]}: "
                  f"{K.LAUNCHES['window_diff']} launches, expected 1")
     print(f"ragged cases: {len(C.VOTE_CASES)} of hough_vote, "
-          f"{len(C.PICK_CASES)} of walk_pick and "
+          f"{len(C.PICK_CASES)} of walk_pick, {len(C.PEAK_CASES)} of "
+          f"peak_ladder and find_peaks and "
           f"{len(C.WINDOW_DIFF_STREAM_CASES)} of window_diff's stream axis "
           f"(one launch each) exact", flush=True)
 
@@ -1613,7 +1643,8 @@ def phase_multistream(card: str) -> dict:
     # one replay a block (each replay adds the launches it holds)
     want = {"window_diff": 2 + n_blocks, "median_binarize_close": 2 + n_blocks,
             "hough_vote": (2 + n_blocks) * chunks,
-            "walk_pick": (2 + n_blocks) * chunks}
+            "walk_pick": (2 + n_blocks) * chunks,
+            "peak_ladder": (2 + n_blocks) * chunks}
     if len(caps) != 1 or launches != want:
         fail(f"multistream: {len(caps)} captures, launches {launches}, "
              f"expected one capture and {want} (one window_diff and one "

@@ -11,7 +11,6 @@ import datetime
 import queue
 import sys
 import threading
-import time
 from typing import Callable, Optional
 
 LEVEL_HEADER = [
@@ -92,8 +91,11 @@ class ThreadMetLog(BaseMetLog):
         return self.stopped
 
     def _loop(self) -> None:
+        # a line is printed as soon as it is queued (the reference sleeps
+        # 20 ms before each line, which paced a whole detect_video call at
+        # 20 ms a line); the timeout only bounds how long an idle thread
+        # takes to see stop()
         while not (self.stopped and self.is_empty):
-            time.sleep(self._wait)
             try:
                 strf, lv, string = self.pool.get(timeout=self._wait)
             except queue.Empty:

@@ -8,7 +8,8 @@ cv2.HoughLinesP, reference MetLib/Detector.py:282-287, :347-352):
 2. **Vote** -- per (point, theta) the rho bin is counted
    (``kernels.hough_vote``, a CUDA kernel on the card).
 3. **Peak find** -- 3x3 local maxima above the threshold, with the
-   crowd-guard ladder of the JAX package, compacted in (theta, rho) order.
+   crowd-guard ladder of the JAX package, compacted in (theta, rho) order
+   (``kernels.peak_ladder`` tests and counts them on the card).
 4. **Segment walk** -- each peak line is walked along its major axis over
    the bit-packed corner planes (``kernels.walk_pick`` picks one plane row
    per column), then the longest gap-tolerant run gives the segment.
@@ -52,29 +53,29 @@ def compact_indices(mask: torch.Tensor, k: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Indices of the first k nonzero entries of each row of [B, N].
 
-    A prefix sum ranks every active element; each one with rank <= k is
-    scattered to its slot, the rest to a dump slot that is dropped. The
-    prefix sum runs in two levels (within rows of SCAN_ROW, then over the
-    row totals): torch's scan over a few very long rows keeps the card
-    mostly idle (measured 0.72 ms for [8, 518400] int32 on an H100).
+    A prefix sum ranks every active element, and a binary search over the
+    ranks finds the first element of each rank 1..k (the JAX package's
+    search, ``_compact_indices``). The prefix sum runs in two levels
+    (within rows of SCAN_ROW, then over the row totals): torch's scan over
+    a few very long rows keeps the card mostly idle (measured 0.72 ms for
+    [8, 518400] int32 on an H100). Of [B, N] only the mask's test, its
+    padded i32 copy and the i32 ranks summed from it are made.
     Returns (idx [B, k] int64, -1 where invalid; valid [B, k] bool)."""
     b, n = mask.shape
     n_pad = _round_up(n, SCAN_ROW)
     act = torch.zeros((b, n_pad), dtype=torch.int32, device=mask.device)
     act[:, :n] = mask != 0
-    within = torch.cumsum(act.view(b, -1, SCAN_ROW), dim=2,
-                          dtype=torch.int32)
-    row_tot = within[:, :, -1]
-    row_off = torch.cumsum(row_tot, dim=1, dtype=torch.int32) - row_tot
-    rank = (within + row_off[:, :, None]).view(b, n_pad)[:, :n]
-    act = act[:, :n] != 0
-    slot = torch.where(act & (rank <= k), rank - 1, k).to(torch.int64)
-    src = torch.arange(n, device=mask.device, dtype=torch.int64)
-    out = torch.zeros((b, k + 1), dtype=torch.int64, device=mask.device)
-    out.scatter_(1, slot, src.expand(b, n))
-    valid = (torch.arange(k, device=mask.device)[None, :]
-             < rank[:, -1:])
-    return torch.where(valid, out[:, :k], -1), valid
+    rank = torch.cumsum(act.view(b, -1, SCAN_ROW), dim=2, dtype=torch.int32)
+    del act
+    row_tot = rank[:, :, -1]
+    rank += (torch.cumsum(row_tot, dim=1, dtype=torch.int32)
+             - row_tot)[:, :, None]
+    rank = rank.view(b, n_pad)  # non-decreasing; the padding holds the total
+    want = torch.arange(1, k + 1, dtype=torch.int32,
+                        device=mask.device).expand(b, k).contiguous()
+    idx = torch.searchsorted(rank, want)
+    valid = want <= rank[:, -1:]
+    return torch.where(valid, idx, -1), valid
 
 
 _CUTS: dict = {}
@@ -90,20 +91,36 @@ def _peak_cuts(threshold: int, device: torch.device) -> torch.Tensor:
     return _CUTS[key]
 
 
-def find_peaks(votes: torch.Tensor, threshold: int, max_peaks: int
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """3x3 local maxima above threshold over [B, n_theta, n_rho] votes.
-
-    Crowd guard (``metdetpy_tpu/ops/hough.py`` ``_find_peaks``): when more
-    than max_peaks peaks survive, the vote cutoff rises to the lowest rung
-    of a static geometric ladder whose survivor count fits (the last rung
-    if none does). Returns (theta_idx, rho_idx, ok), each [B, max_peaks].
-    """
-    b, _, n_rho = votes.shape
+def find_peaks_plain(votes: torch.Tensor, threshold: int, max_peaks: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Spec of ``find_peaks``, and its route off the card: the crowd
+    guard's survivor counts as a [B, C, N] comparison and its sum."""
+    b = votes.shape[0]
     is_peak = (votes >= dilate3x3(votes)) & (votes > threshold)
     cuts = _peak_cuts(threshold, votes.device)
     peak_votes = torch.where(is_peak, votes, -1).reshape(b, 1, -1)
     tails = (peak_votes >= cuts[None, :, None]).sum(dim=2)   # [B, C]
+    return _ladder_pick(votes, is_peak, tails, cuts, max_peaks)
+
+
+def _find_peaks_ladder(votes: torch.Tensor, threshold: int, max_peaks: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``find_peaks`` from ``kernels.peak_ladder``'s mask and rung counts:
+    the survivors of cut c are the peaks of rungs c+1..C."""
+    cuts = _peak_cuts(threshold, votes.device)
+    is_peak, count = kernels.peak_ladder(votes, threshold, cuts)
+    tails = torch.flip(torch.cumsum(torch.flip(count[:, 1:], [1]), dim=1),
+                       [1])                                  # [B, C]
+    return _ladder_pick(votes, is_peak.view(torch.bool).view(votes.shape),
+                        tails, cuts, max_peaks)
+
+
+def _ladder_pick(votes: torch.Tensor, is_peak: torch.Tensor,
+                 tails: torch.Tensor, cuts: torch.Tensor, max_peaks: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The lowest rung whose survivors fit (the last if none does), its
+    survivors compacted in (theta, rho) order."""
+    b, _, n_rho = votes.shape
     fits = tails <= max_peaks
     ci = torch.where(fits.any(dim=1),
                      torch.argmax(fits.to(torch.int32), dim=1),
@@ -112,6 +129,22 @@ def find_peaks(votes: torch.Tensor, threshold: int, max_peaks: int
     idx, ok = compact_indices(is_peak.reshape(b, -1), max_peaks)
     idx = torch.where(ok, idx, 0)
     return idx // n_rho, idx % n_rho, ok
+
+
+def find_peaks(votes: torch.Tensor, threshold: int, max_peaks: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """3x3 local maxima above threshold over [B, n_theta, n_rho] votes.
+
+    Crowd guard (``metdetpy_tpu/ops/hough.py`` ``_find_peaks``): when more
+    than max_peaks peaks survive, the vote cutoff rises to the lowest rung
+    of a static geometric ladder whose survivor count fits (the last rung
+    if none does). On the card ``kernels.peak_ladder`` tests every bin and
+    counts the peaks by rung in one pass; elsewhere ``find_peaks_plain``.
+    Returns (theta_idx, rho_idx, ok), each [B, max_peaks].
+    """
+    if votes.device.type == "cuda":
+        return _find_peaks_ladder(votes, threshold, max_peaks)
+    return find_peaks_plain(votes, threshold, max_peaks)
 
 
 def pack_corners(img01: torch.Tensor) -> torch.Tensor:

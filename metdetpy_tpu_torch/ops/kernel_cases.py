@@ -1,6 +1,7 @@
-"""Ragged inputs that hold ``hough_vote`` and ``walk_pick`` against their
-plain versions: odd sizes, empty and degenerate point lists, the largest
-n_rho, rows outside the plane and storage that is not 16-byte aligned;
+"""Ragged inputs that hold ``hough_vote``, ``walk_pick`` and ``peak_ladder``
+against their plain versions: odd sizes, empty and degenerate point lists,
+the largest n_rho, rows outside the plane, crafted vote planes (ties,
+borders, the crowd guard's edges) and storage that is not 16-byte aligned;
 and the stream axis of ``window_diff``: one or several streams, blocks
 shorter than the history, per-stream timers, and histories that are views
 of the previous block's frames (streams T frames apart, not n-1).
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .hough import _peak_cuts
 from .kernels import MAX_VOTE_RHO
 
 # (id, T, n, n_rho, fill, offset): fill is how the points are made --
@@ -51,6 +53,92 @@ PICK_CASES = [
     ("beyond", 2, 20, 1024, "beyond", 0),
     ("offset4", 3, 20, 1024, "random", 4),
 ]
+
+# the crowd guard's threshold and peak budget on the peak cases (the
+# profile's dense chunk and the main path's max_peaks)
+PEAK_THRESHOLD = 10
+PEAK_MAX = 64
+# crafted planes: ties between neighbours; peaks on every border and
+# corner; exactly PEAK_MAX and PEAK_MAX + 1 isolated peaks; votes equal to
+# each cut and beside it; more than PEAK_MAX peaks on the last rung; no peak
+PEAK_KINDS = ("plateau", "borders", "peaks64", "peaks65", "at_cuts",
+              "last_rung", "none")
+# (id, T, n_rho, fill, offset): fill a kind of PEAK_KINDS (every frame that
+# kind) or "random" (each frame its own noise level and spikes over every
+# rung); the votes start ``offset`` bytes into their storage (n_rho % 4 != 0
+# and the offset take the kernel's one-column path).
+PEAK_CASES = [
+    *[(kind, 2, 3072, kind, 0) for kind in PEAK_KINDS],
+    ("random", 8, 3072, "random", 0),
+    ("t1", 1, 3072, "random", 0),
+    ("t64", 64, 3072, "random", 0),
+    ("rho128", 3, 128, "random", 0),
+    ("rho3071", 2, 3071, "random", 0),
+    ("rho_max", 2, MAX_VOTE_RHO, "random", 0),
+    ("offset4", 3, 3072, "random", 4),
+]
+
+
+def _isolated(rng, n: int, n_theta: int, n_rho: int):
+    """n distinct bins of a lattice 3 apart, so no two share a window."""
+    lattice = [(th, rh) for th in range(1, n_theta - 1, 3)
+               for rh in range(1, n_rho - 1, 3)]
+    pick = rng.choice(len(lattice), n, replace=False)
+    return tuple(np.array([lattice[i] for i in pick]).T)
+
+
+def peak_plane(kind: str, n_theta: int, n_rho: int, rng) -> np.ndarray:
+    """A [n_theta, n_rho] i32 vote plane of one of PEAK_KINDS or
+    "random", for PEAK_THRESHOLD and PEAK_MAX; n_rho >= 64 (crafted)."""
+    cuts = _peak_cuts(PEAK_THRESHOLD, "cpu").numpy()
+    v = np.zeros((n_theta, n_rho), np.int32)
+    mid_t, mid_r = n_theta // 2, n_rho // 2
+    if kind == "random":
+        v[:] = rng.integers(0, rng.choice([5, 15, 40, 200]), v.shape)
+        n_spikes = int(rng.integers(0, 300))
+        v[rng.integers(0, n_theta, n_spikes),
+          rng.integers(0, n_rho, n_spikes)] = rng.integers(
+              PEAK_THRESHOLD + 1, 10_000, n_spikes)
+    elif kind == "plateau":
+        v[10:12, 10:12] = 50                    # a 2x2 plateau: four peaks
+        v[40, 20:23] = 30                       # a row of three
+        v[60, 40:42] = 77                       # two equal neighbours
+        v[100:103, 50:53] = 20                  # 3x3, all nine peaks
+        v[120, 30], v[121, 31] = 40, 41         # a higher neighbour
+        v[140, 5:8] = PEAK_THRESHOLD            # a plateau at the threshold
+        v[150, 60], v[151, 60] = PEAK_THRESHOLD + 1, PEAK_THRESHOLD + 1
+    elif kind == "borders":
+        for th in (0, mid_t, n_theta - 1):
+            for rh in (0, mid_r, n_rho - 1):
+                v[th, rh] = 100 + th + rh
+        v[0, 3:6] = 60                          # a plateau on the top edge
+        v[mid_t + 3, n_rho - 2:] = 70           # and one at the right edge
+    elif kind in ("peaks64", "peaks65"):
+        n = PEAK_MAX + (kind == "peaks65")
+        v[_isolated(rng, n, n_theta, n_rho)] = rng.integers(
+            PEAK_THRESHOLD + 1, 9_000, n)
+    elif kind == "at_cuts":
+        votes = np.concatenate([cuts - 1, cuts, cuts + 1])
+        v[_isolated(rng, len(votes), n_theta, n_rho)] = votes
+    elif kind == "last_rung":
+        n = PEAK_MAX + 6
+        v[_isolated(rng, n + 20, n_theta, n_rho)] = np.concatenate(
+            [rng.integers(cuts[-1], cuts[-1] + 900, n),
+             rng.integers(PEAK_THRESHOLD + 1, cuts[-1], 20)])
+    elif kind == "none":
+        v[:] = rng.integers(0, PEAK_THRESHOLD + 1, v.shape)
+    else:
+        raise ValueError(f"unknown peak plane {kind!r}")
+    return v
+
+
+def peak_case(case, dev, seed: int):
+    """(votes, threshold, cuts) of one of PEAK_CASES."""
+    _, t, n_rho, fill, offset = case
+    rng = np.random.default_rng([seed, t, n_rho, offset])
+    votes = np.stack([peak_plane(fill, 180, n_rho, rng) for _ in range(t)])
+    return (_place(votes, dev, offset), PEAK_THRESHOLD,
+            _peak_cuts(PEAK_THRESHOLD, dev))
 
 
 # (id, S, T, n, h, w, timer0, timer_step, history): history "own" is a

@@ -1,7 +1,8 @@
-"""The four hand-written CUDA kernels of the M3 path, their wrappers and
+"""The five hand-written CUDA kernels of the M3 path, their wrappers and
 their plain PyTorch versions.
 
-Counterpart of ``metdetpy_tpu/ops/pallas_kernels.py``. Each wrapper:
+Counterpart of ``metdetpy_tpu/ops/pallas_kernels.py``, and of the plain
+peak find of ``metdetpy_tpu/ops/hough.py`` (``peak_ladder``). Each wrapper:
 
 - takes the plain version for CPU tensors, and only for them;
 - launches its CUDA kernel for CUDA tensors, or raises (there is no
@@ -55,6 +56,8 @@ SOURCES = {
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "walk_pick": ("walk_pick.cu", "mdt_walk_pick",
                   [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "peak_ladder": ("peak_ladder.cu", "mdt_peak_ladder",
+                    [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
 }
 # every C entry point bound: the kernels, and the empty kernel on
 # walk_pick's grid that walk_pick_floor launches
@@ -477,3 +480,68 @@ def walk_pick_floor(planes: torch.Tensor, r: torch.Tensor,
     t, k, s = r.shape
     _launch("walk_pick_floor", planes, planes.data_ptr(), r.data_ptr(),
             xmaj.data_ptr(), 0, t, k, s)
+
+
+# -- 5. peak ladder -----------------------------------------------------------
+#
+# The Hough peak find's 3x3 local-maximum test and the crowd guard's counts
+# (metdetpy_tpu/ops/hough.py::_find_peaks, plain XLA there: no Pallas
+# kernel) in one pass. Bound by bytes: the [T, 180, n_rho] i32 votes read
+# once (17.7 MB for 8 frames at n_rho 3072) and the u8 mask written
+# (4.4 MB): 0.0066 ms at 3.35 TB/s; the window max's 8 and the test's 2
+# operations per bin take 0.0007 ms at 67 T/s (a rung is counted per peak). A thread takes 4 adjacent
+# rho columns of a run of theta rows (16-byte loads of the run's rows and
+# the two around it; the halo columns from the neighbouring lanes by warp
+# shuffles); each peak counts into its rung, the number of cuts <= its vote,
+# in a shared-memory histogram, and a block adds its non-zero bins to the
+# [T, n_cuts + 1] i32 count with global atomicAdd. The entry point zeroes
+# the count with a memset on the launch stream first, so a graph that
+# captures the launch zeroes it again on every replay.
+
+MAX_LADDER_CUTS = 32  # csrc/peak_ladder.cu kMaxCuts
+
+
+def peak_ladder_plain(votes: torch.Tensor, threshold: int,
+                      cuts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spec: ``hough.find_peaks_plain``'s peak test, ``votes >=
+    dilate3x3(votes)`` and ``votes > threshold``, as a [T, n_theta * n_rho]
+    u8 mask, and each peak counted into its rung, the number of cuts <= its
+    vote: a [T, len(cuts) + 1] i32 count."""
+    t = votes.shape[0]
+    flat = votes.reshape(t, -1)
+    is_peak = ((votes >= filters.dilate3x3(votes))
+               & (votes > threshold)).reshape(t, -1)
+    rung = torch.zeros_like(flat)
+    for c in cuts.tolist():
+        rung += flat >= c
+    count = torch.zeros((t, len(cuts) + 1), dtype=torch.int32,
+                        device=votes.device)
+    count.scatter_add_(1, rung.to(torch.int64), is_peak.to(torch.int32))
+    return is_peak.to(torch.uint8), count
+
+
+def peak_ladder(votes: torch.Tensor, threshold: int,
+                cuts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3x3 local maxima above ``threshold`` of [T, n_theta, n_rho] i32
+    votes and their counts by rung of the ladder ``cuts`` (1-D i32, at most
+    MAX_LADDER_CUTS) -> (is_peak [T, n_theta * n_rho] u8,
+    count [T, len(cuts) + 1] i32)."""
+    if not _on_card(votes, "peak_ladder"):
+        return peak_ladder_plain(votes, threshold, cuts)
+    t, n_theta, n_rho = votes.shape
+    dev = votes.device
+    _check("peak_ladder", votes, torch.int32, dev)
+    _check("peak_ladder", cuts, torch.int32, dev)
+    n_cuts = cuts.numel()
+    if cuts.dim() != 1 or not 1 <= n_cuts <= MAX_LADDER_CUTS:
+        raise ValueError(f"peak_ladder: cuts of shape {tuple(cuts.shape)}, "
+                         f"expected 1 to {MAX_LADDER_CUTS} in one dimension")
+    if t > 65535:
+        raise ValueError(f"peak_ladder: {t} frames, at most 65535")
+    is_peak = torch.empty((t, n_theta * n_rho), dtype=torch.uint8,
+                          device=dev)
+    count = torch.empty((t, n_cuts + 1), dtype=torch.int32, device=dev)
+    _launch("peak_ladder", votes, votes.data_ptr(), cuts.data_ptr(), n_cuts,
+            int(threshold), is_peak.data_ptr(), count.data_ptr(), t,
+            n_theta, n_rho)
+    return is_peak, count

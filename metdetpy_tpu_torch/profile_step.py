@@ -32,7 +32,7 @@ JSON line, beside the card's name and power limit (``"device"``):
   included), so every call and replay computes the same block phase: the
   line states its ``timer0`` and the frames whose EMA updates.
 - ``launches``: device records (kernels, copies, fills) of one eager call,
-  from the profiler; ``kernel_launches`` the four CUDA kernels' own.
+  from the profiler; ``kernel_launches`` the five CUDA kernels' own.
 
 Derived lines: ``rest`` (``block``: the step less its four timed stages)
 and ``hough`` (``split``: the step less ``chain_only``). On ``--device

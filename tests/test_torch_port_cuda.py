@@ -17,8 +17,8 @@ import torch
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.ops import hough, kernels
 from metdetpy_tpu_torch.ops.kernel_cases import (
-    PICK_CASES, VOTE_CASES, WINDOW_DIFF_STREAM_CASES, pick_case, vote_case,
-    window_diff_stream_case)
+    PEAK_CASES, PEAK_MAX, PICK_CASES, VOTE_CASES, WINDOW_DIFF_STREAM_CASES,
+    peak_case, pick_case, vote_case, window_diff_stream_case)
 from metdetpy_tpu_torch.structs import MainDetectCfg
 from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
 from metdetpy_tpu_torch.utils import relative2abs_path
@@ -66,6 +66,13 @@ def _card_cases(dev):
             kernels.hough_vote_plain),
         "walk_pick": ((planes, geom.r.contiguous(), geom.xmaj),
                       kernels.walk_pick_plain),
+        "peak_ladder": (
+            (t(np.where(rng.random((3, 180, n_rho)) < 0.02,
+                        rng.integers(0, 9000, (3, 180, n_rho)),
+                        rng.integers(0, 14, (3, 180, n_rho))
+                        ).astype(np.int32)),
+             10, hough._peak_cuts(10, dev)),
+            kernels.peak_ladder_plain),
     }
 
 
@@ -219,6 +226,69 @@ def test_hough_vote_refuses_too_many_rho_bins(cuda_device):
                      cuda_device, SEED)
     with pytest.raises(ValueError):
         kernels.hough_vote(*args)
+
+
+# PEAK_CASES (ops/kernel_cases.py): crafted planes (ties, borders and
+# corners, exactly 64 and 65 peaks, votes at the cuts, every rung over 64,
+# no peak) and random ones at [8, 180, 3072], T = 1 and 64, n_rho 128, 3071
+# and the largest, votes 4 bytes into their storage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PEAK_CASES, ids=[c[0] for c in PEAK_CASES])
+def test_peak_ladder_on_card_ragged(cuda_device, case):
+    """The kernel's mask and rung counts equal the plain version's bit for
+    bit, and so does find_peaks on the card."""
+    votes, threshold, cuts = peak_case(case, cuda_device, SEED)
+    kernels.reset_launch_counts()
+    got = kernels.peak_ladder(votes, threshold, cuts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["peak_ladder"] == 1
+    want = kernels.peak_ladder_plain(votes, threshold, cuts)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    got = hough.find_peaks(votes, threshold, PEAK_MAX)
+    want = hough.find_peaks_plain(votes, threshold, PEAK_MAX)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_find_peaks_in_a_graph_equals_plain(cuda_device):
+    """find_peaks captured in a CUDA graph and replayed on two other vote
+    planes equals the eager plain op each time: the rung counts are zeroed
+    again on every replay."""
+    planes = [peak_case(("random", 8, 3072, "random", 0), cuda_device,
+                        SEED + i)[0] for i in range(3)]
+    votes = planes[0].clone()
+    hough.find_peaks(votes, 10, PEAK_MAX)        # build, cache the cuts
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = hough.find_peaks(votes, 10, PEAK_MAX)
+    for plane in planes[1:]:
+        votes.copy_(plane)
+        graph.replay()
+        want = hough.find_peaks_plain(plane, 10, PEAK_MAX)
+        torch.cuda.synchronize()
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_find_peaks_on_card_makes_no_rung_tensor(cuda_device):
+    """At the main path's shape, [8, 180, 3072], find_peaks raises the
+    card's allocation peak by under 64 MB: no [B, C, N] comparison and no
+    [B, N] int64 (the plain route's peak is ~0.9 GiB)."""
+    votes = peak_case(("random", 8, 3072, "random", 0), cuda_device,
+                      SEED)[0]
+    hough.find_peaks(votes, 10, PEAK_MAX)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    hough.find_peaks(votes, 10, PEAK_MAX)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 64 * 2 ** 20
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import torch
 
 from metdetpy_tpu.ops import hough as jhough
 from metdetpy_tpu_torch.ops import hough as though
-from metdetpy_tpu_torch.ops import filters, kernels
+from metdetpy_tpu_torch.ops import filters, kernel_cases, kernels
 from metdetpy_tpu_torch.ops.f32 import fma_f32, trig_tables
 
 # the tensors here are small: two threads run them fastest and leave the
@@ -119,6 +119,38 @@ def test_find_peaks_matches_jax_including_crowd_guard(nrng):
             np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
     ok = got[2][2].numpy()
     assert 0 < ok.sum() <= 64
+
+
+# survivors of the crowd guard in each frame of a crafted plane
+CRAFTED_OK = {"plateau": 21, "borders": 14, "peaks64": 64, "last_rung": 64,
+              "none": 0}
+
+
+@pytest.mark.parametrize("route", ["find_peaks", "ladder"])
+@pytest.mark.parametrize("kind", kernel_cases.PEAK_KINDS)
+def test_find_peaks_on_crafted_planes_matches_jax(kind, route):
+    """Plateau ties between neighbours, a peak on each border and corner,
+    exactly 64 and 65 peaks, votes equal to each cut, more than 64 peaks on
+    every rung (the last rung), no peak: ``find_peaks`` (here its plain
+    route) and the card's route from the ladder's rung counts (here with
+    ``peak_ladder_plain``) against the JAX package's ``_find_peaks``."""
+    rng = np.random.default_rng([SEED, len(kind)])
+    votes = np.stack([kernel_cases.peak_plane(kind, 180, 384, rng)
+                      for _ in range(2)])
+    fn = though.find_peaks if route == "find_peaks" else \
+        though._find_peaks_ladder
+    got = fn(_t(votes), kernel_cases.PEAK_THRESHOLD, kernel_cases.PEAK_MAX)
+    for i in range(2):
+        want = jhough._find_peaks(jnp.asarray(votes[i]),
+                                  kernel_cases.PEAK_THRESHOLD,
+                                  kernel_cases.PEAK_MAX)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+    n_ok = got[2].sum(dim=1).tolist()
+    if kind in CRAFTED_OK:
+        assert n_ok == [CRAFTED_OK[kind]] * 2
+    else:   # the cut rose: fewer survivors than peaks
+        assert all(0 < n < 65 for n in n_ok)
 
 
 def test_pack_corners_matches_jax(nrng):

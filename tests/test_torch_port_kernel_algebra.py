@@ -7,8 +7,9 @@ these models repeat their algebra step by step -- the thresholded median as
 a majority count, the close as OR/AND of shifted rows, the van Herk window
 max over a ring of frames, the reciprocal floor mean, the byte permutes and
 packed-lane tricks, the vote's theta runs, passes, rounds of points and
-drain, and the pick's thread-to-column map -- so that a wrong identity
-fails here, without a card.
+drain, the pick's thread-to-column map, and the peak ladder's rows,
+halo shuffles and rung histogram -- so that a wrong identity fails here,
+without a card.
 """
 
 import numpy as np
@@ -580,6 +581,90 @@ def test_pick_rows_outside_the_plane_give_zero(nrng, fill):
     assert not kernels.walk_pick(planes, r, xmaj).any()
 
 
+def ladder_model(votes, threshold, cuts, vec: bool, rows: int = 4,
+                 threads: int = 128):
+    """csrc/peak_ladder.cu block by block: a thread's kBins columns of a
+    run of ``rows`` theta rows and the rows around it (INT32_MIN outside
+    the plane), its halo columns from the lanes beside it (shuffles) or,
+    on a warp's edge lanes, loaded; the 3x3 max as rows, then columns; each
+    block's rung histogram added into the count."""
+    t, n_theta, n_rho = votes.shape
+    bins = 4 if vec else 1
+    lo = np.iinfo(np.int32).min
+    is_peak = np.full((t, n_theta * n_rho), 7, np.uint8)    # 7: unwritten
+    count = np.zeros((t, len(cuts) + 1), np.int64)
+    lane = np.arange(threads) % 32
+    per_block = threads * bins
+    for b in range(t):
+        for by in range(-(-n_theta // rows)):
+            th0 = by * rows
+            for bx in range(-(-n_rho // per_block)):
+                c0 = (bx * threads + np.arange(threads)) * bins
+                active = c0 < n_rho
+                v = np.full((rows + 2, threads, bins + 2), lo, np.int64)
+                for i in range(rows + 2):
+                    th = th0 - 1 + i
+                    if not 0 <= th < n_theta:
+                        continue
+                    row = votes[b, th]
+                    for j in range(bins):
+                        v[i, active, 1 + j] = row[c0[active] + j]
+                    left = (lane == 0) & (c0 > 0) & (c0 <= n_rho)
+                    v[i, left, 0] = row[c0[left] - 1]
+                    right = (lane == 31) & (c0 + bins < n_rho)
+                    v[i, right, bins + 1] = row[c0[right] + bins]
+                    up = np.roll(v[i, :, bins], 1)        # lane - 1's last
+                    down = np.roll(v[i, :, 1], -1)        # lane + 1's first
+                    v[i, lane != 0, 0] = up[lane != 0]
+                    v[i, lane != 31, bins + 1] = down[lane != 31]
+                hist = np.zeros(len(cuts) + 1, np.int64)
+                for i in range(1, rows + 1):
+                    th = th0 - 1 + i
+                    if th >= n_theta:
+                        break
+                    col = np.maximum(np.maximum(v[i - 1], v[i]), v[i + 1])
+                    for j in range(bins):
+                        x = v[i, :, j + 1]
+                        m = np.maximum(np.maximum(col[:, j], col[:, j + 1]),
+                                       col[:, j + 2])
+                        peak = active & (x > threshold) & (x >= m)
+                        rung = (x[peak, None] >= cuts[None, :]).sum(axis=1)
+                        np.add.at(hist, rung, 1)
+                        cols = c0[active] + j
+                        assert (is_peak[b, th * n_rho + cols] == 7).all()
+                        is_peak[b, th * n_rho + cols] = peak[active]
+                count[b] += hist
+    return is_peak, count
+
+
+# (T, n_theta, n_rho, vec): the vector path needs n_rho % 4 == 0
+LADDER_SHAPES = [(2, 7, 12, True), (1, 5, 128, True), (2, 9, 516, True),
+                 (1, 4, 1028, True), (2, 1, 8, True), (2, 7, 12, False),
+                 (1, 5, 128, False), (2, 9, 516, False), (1, 4, 1028, False),
+                 (2, 1, 8, False), (1, 6, 1, False), (1, 3, 131, False)]
+
+
+@pytest.mark.parametrize("t,n_theta,n_rho,vec", LADDER_SHAPES)
+def test_ladder_model_equals_plain(nrng, t, n_theta, n_rho, vec):
+    """The peak ladder's blocks, rows and halo shuffles write every bin
+    once and give peak_ladder_plain's mask and counts, with tiles and runs
+    of theta rows cut off by the plane's edges, warps' edge lanes inside
+    the plane, plateaus, and peaks on every rung, on the 4-column and the
+    one-column path."""
+    cuts = np.unique(np.round(np.geomspace(11, 8192, 24))).astype(np.int32)
+    votes = nrng.integers(0, 14, (t, n_theta, n_rho)).astype(np.int32)
+    spikes = nrng.random(votes.shape) < 0.05
+    votes[spikes] = nrng.integers(11, 9000, int(spikes.sum()))
+    votes[0, 0, :min(n_rho, 3)] = 12                   # a plateau at a border
+    votes[-1, -1, -1] = cuts[5]                        # a vote at a cut
+    want_mask, want_count = kernels.peak_ladder_plain(
+        torch.from_numpy(votes), 10, torch.from_numpy(cuts))
+    mask, count = ladder_model(votes, 10, cuts, vec)
+    np.testing.assert_array_equal(mask, want_mask.numpy())
+    np.testing.assert_array_equal(count, want_count.numpy())
+    assert want_count.sum() == want_mask.sum() > 0
+
+
 def test_kernel_case_lists_run_on_the_cpu():
     """Every ragged case of ops/kernel_cases.py builds its inputs (with the
     storage offset asked for) and goes through the wrappers' CPU path; the
@@ -598,3 +683,10 @@ def test_kernel_case_lists_run_on_the_cpu():
         planes, r, xmaj = C.pick_case(small, "cpu", SEED)
         assert r.is_contiguous() and r.storage_offset() * 4 == offset
         assert kernels.walk_pick(planes, r, xmaj).shape == r.shape
+    for case in C.PEAK_CASES:
+        name, t, n_rho, fill, offset = case
+        small = (name, min(t, 2), min(n_rho, 512), fill, offset)
+        votes, threshold, cuts = C.peak_case(small, "cpu", SEED)
+        assert votes.is_contiguous() and votes.storage_offset() * 4 == offset
+        is_peak, count = kernels.peak_ladder(votes, threshold, cuts)
+        assert count.sum(dim=1).tolist() == is_peak.sum(dim=1).tolist()

@@ -20,7 +20,7 @@ its first profiler session (as a frozen build's traced run is). Each
 traced run prints one JSON line: its wall seconds, its kernel launches
 (``cudaLaunchKernel`` events) without a kernel record, each such
 launch's enclosing operator and microseconds after the recorded step's
-start, and its kernel records of each of the four kernels against their
+start, and its kernel records of each kernel against their
 launch counts. Prints the card's name and
 power limit first, and a summary of each form last.
 """
