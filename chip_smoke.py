@@ -833,27 +833,36 @@ def _records(mdrf) -> list:
     return [t for rec in mdrf.results for t in rec.target]
 
 
+@contextlib.contextmanager
+def loader_uploads(on: bool):
+    """For the block only, whether detect_video's block loader uploads
+    its blocks itself (off: the detector uploads them)."""
+    from metdetpy_tpu_torch import api
+    decide = api._loader_uploads
+    api._loader_uploads = lambda *a: on and decide(*a)
+    try:
+        yield
+    finally:
+        api._loader_uploads = decide
+
+
 def dldet_run(name: str, frames, card: str, device_put: bool = True):
     """config/dldet.json as shipped on 960x544 colour frames; prints the
     run and returns (raw frames per second, dispatch seconds). With
-    ``device_put`` off the loader's upload is switched off
-    (METDETPY_TPU_LOADER_DEVICE_PUT=0) and the detector uploads."""
+    ``device_put`` off the loader's upload is switched off and the
+    detector uploads."""
     from metdetpy_tpu_torch.api import detect_video
     from metdetpy_tpu_torch.models import yolo
     from metdetpy_tpu_torch.ops import kernels as K
     cfg = preset_cfg("dldet")
     yolo.CALLS.clear()
     K.reset_launch_counts()
-    if not device_put:
-        os.environ["METDETPY_TPU_LOADER_DEVICE_PUT"] = "0"
-    try:
+    with loader_uploads(device_put):
         t0 = time.perf_counter()
         mdrf = detect_video(frames, None, cfg, work_mode="backend",
                             device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        os.environ.pop("METDETPY_TPU_LOADER_DEVICE_PUT", None)
     uploaded = mdrf.performance.get("loader_h2d_bytes", 0)
     if bool(uploaded) != device_put:
         fail(f"dldet, {name}: the loader uploaded {uploaded} bytes with "
@@ -1026,12 +1035,13 @@ def env_set(env: dict):
                 os.environ[k] = v
 
 
-def _run_m3(frames, cfg, dev: str, env: dict = None, **kw):
+def _run_m3(frames, cfg, dev: str, uploads: bool = True, **kw):
     """detect_video with the launch counts set to 0 just before it; returns
-    (mdrf, launches, wall seconds). ``env`` is set for the run only."""
+    (mdrf, launches, wall seconds). With ``uploads`` off the loader does
+    not upload its blocks (``loader_uploads``)."""
     from metdetpy_tpu_torch.api import detect_video
     from metdetpy_tpu_torch.ops import kernels as K
-    with env_set(env or {}):
+    with loader_uploads(uploads):
         K.reset_launch_counts()
         t0 = time.perf_counter()
         mdrf = detect_video(frames, None, cfg, work_mode="backend",
@@ -1054,25 +1064,22 @@ def _dicts(mdrf) -> list:
 
 def phase_feed_1080p(card: str) -> None:
     """m3det_normal at camera size: 1920x1080 gray decoded, 960x540
-    detected, with the preprocess on the device, on the host, and where
-    the loader's probe puts it."""
+    detected, with the preprocess on the device (where the loader puts a
+    2:1 gray feed) and on the host (the loader's upload off)."""
     fw, fh = 2 * W, 2 * H
     frames, _, _ = synth_clip(fw, fh, 256 / FPS, 4.0, 6.0, color=False)
     cfg = preset_cfg("m3det_normal", recheck=False)
     if cfg.loader.resize != W:
         fail(f"m3det_normal's runtime width is {cfg.loader.resize}, not {W}")
     runs = {}
-    for name, env in (("device", {"METDETPY_TPU_DEVICE_PREPROC": "force"}),
-                      ("host", {"METDETPY_TPU_LOADER_DEVICE_PUT": "0"}),
-                      ("probed", {})):
+    for name in ("device", "host"):
         mdrf, launches, wall = _run_m3(frames, preset_cfg(
-            "m3det_normal", recheck=False), "cuda", env)
+            "m3det_normal", recheck=False), "cuda", uploads=name == "device")
         _require_launches(f"1080p feed ({name})", launches)
         perf = mdrf.performance
-        want = {"device": "device", "host": "host"}.get(name)
-        if want and perf.get("loader_placement") != want:
+        if perf.get("loader_placement") != name:
             fail(f"1080p feed ({name}): placement "
-                 f"{perf.get('loader_placement')}, expected {want}")
+                 f"{perf.get('loader_placement')}, expected {name}")
         if name != "host" and not perf.get("loader_h2d_bytes"):
             fail(f"1080p feed ({name}): the loader uploaded nothing")
         runs[name] = (mdrf, launches, wall)
@@ -1081,8 +1088,7 @@ def phase_feed_1080p(card: str) -> None:
               f"{frames.shape[0] / wall:.2f} frames/s on {card}; placement "
               f"{perf.get('loader_placement')}, loader_h2d_s "
               f"{perf.get('loader_h2d_s')}, loader_h2d_bytes "
-              f"{perf.get('loader_h2d_bytes')}, probe "
-              f"{json.dumps(perf.get('loader_preproc_probe'))}; launches "
+              f"{perf.get('loader_h2d_bytes')}; launches "
               f"{launches}; perf {json.dumps(perf)}", flush=True)
     cpu, _, cpu_wall = _run_m3(frames, preset_cfg(
         "m3det_normal", recheck=False), "cpu")
@@ -1090,15 +1096,14 @@ def phase_feed_1080p(card: str) -> None:
     if not any(t["category"] == "METEOR" for r in got["device"]
                for t in r["target"]):
         fail(f"1080p feed: no METEOR found ({got['device']})")
-    for k in ("host", "probed"):
-        if got[k] != got["device"]:
-            fail(f"1080p feed: the MDRF with the preprocess {k} differs "
-                 f"from the device's: {got[k]} vs {got['device']}")
+    if got["host"] != got["device"]:
+        fail(f"1080p feed: the MDRF with the preprocess on the host "
+             f"differs from the device's: {got['host']} vs {got['device']}")
     if _dicts(cpu) != got["device"]:
         fail(f"1080p feed: the card's MDRF differs from the CPU's: "
              f"{got['device']} vs {_dicts(cpu)}")
     print(f"1080p feed: {len(got['device'])} MDRF record(s), equal with the "
-          f"preprocess on the device, on the host, probed, and on the CPU "
+          f"preprocess on the device, on the host, and on the CPU "
           f"({cpu_wall:.1f} s)", flush=True)
 
 

@@ -21,7 +21,7 @@ import numpy as np
 from . import get_detector, get_loader, get_wrapper, resolve_device
 from .detectors.base import BaseDetector
 from .detectors.m3det import DiffAreaGuidingDetecor, LineDetector, M3Detector
-from .io.videoloader import BlockVideoLoader
+from .io.videoloader import PIPELINE_DEPTH, BlockVideoLoader
 from .log import get_default_logger, set_default_logger
 from .profiling import StageTimer, maybe_torch_trace
 from .structs import MDRF, ClipCfg, MainDetectCfg, RuntimeParams
@@ -30,9 +30,26 @@ from .utils import (LIVE_MODE_SPEED_CTRL_CONST, VERSION, frame2time, frame2ts,
 from .visu import OpenCVMetVisu, TextColorPair, TextVisu
 
 # blocks dispatched before a deferred collection; each keeps its small
-# packed result on the device until then (METDETPY_TPU_COLLECT_HORIZON
-# overrides; a detector's max_deferred_horizon caps it)
+# packed result on the device until then (a detector's
+# max_deferred_horizon caps it)
 COLLECT_HORIZON = 128
+
+
+def _loader_uploads(DetectorCls, visual_mode: bool) -> bool:
+    """Whether a block loader uploads its blocks itself: for a detector
+    with a device block step, so the copy overlaps dispatch and collect
+    (visual mode needs host frames)."""
+    return hasattr(DetectorCls, "process_block_async") and not visual_mode
+
+
+def _collect_deferred(detector, use_async: bool, live_mode: bool,
+                      visual_mode: bool) -> bool:
+    """Whether the block loop defers collection: dispatch a horizon of
+    blocks with no device->host read, then collect it with one stacked
+    copy per group (``detector.collect_many``). Live mode needs pacing and
+    visual mode per-block host frames, so both collect block by block."""
+    return (use_async and not live_mode and not visual_mode
+            and hasattr(detector, "collect_many"))
 
 
 def detect_video(video_name: str, mask_name: Optional[str],
@@ -112,12 +129,8 @@ def detect_video(video_name: str, mask_name: Optional[str],
         if block_loader:
             # the recheck reads the loader's in-memory colour max-stacks
             loader_kwargs["keep_color_stacks"] = recheck_on
-            # detectors with a device block step take blocks the loader
-            # has uploaded itself, so the copy overlaps dispatch and
-            # collect (visual mode needs host frames)
-            loader_kwargs["device_put"] = (
-                hasattr(DetectorCls, "process_block_async")
-                and not visual_mode)
+            loader_kwargs["device_put"] = _loader_uploads(DetectorCls,
+                                                          visual_mode)
             loader_kwargs["device"] = dev
             loader_kwargs["spans"] = spans
         with spans.span("api.init.loader"):
@@ -255,8 +268,8 @@ def detect_video(video_name: str, mask_name: Optional[str],
     # blocks whose results were dropped by the loop's failure recovery
     # (0 in a healthy run)
     perf["recovered_blocks"] = recovered_blocks
-    # the loader's preprocess placement and its probe (its spans are in
-    # the summary: loader_h2d_s, loader_merge_s, ...)
+    # the loader's preprocess placement (its spans are in the summary:
+    # loader_h2d_s, loader_merge_s, ...)
     for k, v in getattr(video_loader, "stage_stats", {}).items():
         perf[f"loader_{k}"] = v
     return MDRF(version=VERSION, basic_info=video_info, config=cfg,
@@ -421,7 +434,6 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
     # step moves the run to no other path (it propagates, or goes to the
     # failure recovery below, which counts the blocks it drops).
     import collections
-    import os as _os
     from concurrent.futures import ThreadPoolExecutor
 
     merged_idx = resume_idx
@@ -431,8 +443,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
     block_frames = getattr(video_loader, "block_frames", 64)
     use_async = (hasattr(detector, "process_block_async")
                  and getattr(detector, "supports_async", True))
-    pipeline_depth = int(_os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6))
-    executor = ThreadPoolExecutor(max_workers=pipeline_depth)
+    executor = ThreadPoolExecutor(max_workers=PIPELINE_DEPTH)
     inflight: "collections.deque" = collections.deque()
 
     # device_epoch tags each dispatched block with the device-state
@@ -557,25 +568,12 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
                 time.sleep(expect - elapsed)
         return True
 
-    # Deferred collection (default for offline block runs): dispatch every
-    # block of a horizon without any device->host read, then collect the
-    # horizon with one stacked copy per group (detector.collect_many).
-    # Live mode needs pacing and visual mode per-block host frames, so
-    # both keep the incremental path. Override with
-    # METDETPY_TPU_DEFERRED_COLLECT=0.
-    deferred_env = _os.environ.get("METDETPY_TPU_DEFERRED_COLLECT")
-    deferred = (use_async and not live_mode and not visual_mode
-                and hasattr(detector, "collect_many")
-                and deferred_env != "0")
-    logger.debug(
-        f"Deferred collection: {'on' if deferred else 'off'} "
-        f"({'env override' if deferred_env is not None else 'default'})")
+    # deferred collection, the default for offline block runs
+    deferred = _collect_deferred(detector, use_async, live_mode, visual_mode)
     # horizon bound: detectors whose handles pin big device arrays
     # (MLDetector's color stacks) declare a tighter cap
-    horizon = max(1, int(_os.environ.get("METDETPY_TPU_COLLECT_HORIZON",
-                                         COLLECT_HORIZON)))
-    horizon = min(horizon, getattr(detector, "max_deferred_horizon",
-                                   horizon))
+    horizon = min(COLLECT_HORIZON, getattr(detector, "max_deferred_horizon",
+                                           COLLECT_HORIZON))
     pending: list = []
     dispatched_merged = resume_idx
 
@@ -640,7 +638,7 @@ def _run_block_loop(video_loader, detector: BaseDetector, collector,
             else:
                 with spans.span("api.dispatch"):
                     inflight.append(dispatch(raw_block))
-                while len(inflight) >= pipeline_depth:
+                while len(inflight) >= PIPELINE_DEPTH:
                     if consume(inflight.popleft()) is False:
                         stopped = True
                         break

@@ -59,6 +59,9 @@ PUT_TIMEOUT = 10
 FAILED_FLAG = "failed"
 DEFAULT_BLOCK_FRAMES = 64
 RECHECK_CHUNK = 16
+# blocks the detect loop keeps in flight (``api._run_block_loop``); a
+# decode loop's block pool holds the block queue's, these and two more
+PIPELINE_DEPTH = 6
 
 _ASSEMBLE_PROBE_CACHE: dict = {}
 
@@ -68,15 +71,11 @@ def _native_assemble_wins(src_shape: tuple, dst_hw: tuple) -> bool:
     kernels (resize [+ gray]) for this (source shape -> block shape).
 
     cv2's hand-vectorized resize measured 10-14x faster than the scalar
-    fixed-point C loop on an uncontended core (2026-08-17, 1080p ->
-    960x540), while the C path's one-GIL-release-per-chunk advantage has
-    measured wins on this host under heavy allocator/THP contention — so
-    measure at loader start instead of hard-coding either. Both paths are
-    cv2-bit-exact, so the choice never changes results. Env override:
-    METDETPY_TPU_NATIVE_ASSEMBLE=0|1."""
-    env = os.environ.get("METDETPY_TPU_NATIVE_ASSEMBLE")
-    if env in ("0", "1"):
-        return env == "1"
+    fixed-point C loop on an uncontended core (1080p -> 960x540), while
+    the C path's one-GIL-release-per-chunk advantage has measured wins on
+    a host under heavy allocator/THP contention -- so measure at loader
+    start instead of hard-coding either. Both paths are cv2-bit-exact, so
+    the choice never changes results."""
     key = (tuple(src_shape), tuple(dst_hw))
     if key in _ASSEMBLE_PROBE_CACHE:
         return _ASSEMBLE_PROBE_CACHE[key]
@@ -110,8 +109,8 @@ def _native_assemble_wins(src_shape: tuple, dst_hw: tuple) -> bool:
 
     cv2_path()  # touch pages / warm caches for both paths
     native()
-    # interleaved min-of-3 per path: this host's CPU stalls come in
-    # multi-ms episodes (THP/steal), so alternating samples keeps one
+    # interleaved min-of-3 per path: a shared host's CPU stalls come in
+    # multi-ms episodes (THP, steal), so alternating samples keeps one
     # episode from poisoning a single path's whole measurement; min takes
     # each path's cleanest sample
     t_native = t_cv2 = float("inf")
@@ -189,8 +188,8 @@ class HostPreprocess:
         """Preprocess ``frame`` directly into the caller's buffer.
 
         Math-identical to ``__call__`` (same resize-then-gray order) but
-        allocation-free: every fresh 0.5MB output allocation measured up
-        to seconds of mmap/THP stall while the TPU client streams, so the
+        allocation-free: a fresh 0.5MB output faults in new pages, which
+        under allocator/THP contention stalled for up to seconds, so the
         hot block-assembly path writes into pre-faulted pool buffers via
         cv2's dst= argument instead. Debayer falls back to __call__.
         """
@@ -643,38 +642,6 @@ def _timeit(fn) -> float:
     return time.perf_counter() - t0
 
 
-def _probe_host_resize_s(rh: int, rw: int, w: int, h: int) -> float:
-    """Seconds for one host resize of an (rh, rw) gray frame to (w, h).
-    Resize cost is data-independent, so a zeros frame is representative;
-    min over reps dodges scheduler jitter."""
-    frame = np.zeros((rh, rw), np.uint8)
-    return min(_timeit(lambda: cv2.resize(
-        frame, (w, h), interpolation=cv2.INTER_LINEAR))
-        for _ in range(3))
-
-
-def _probe_h2d_bps(rh: int, rw: int, device) -> float:
-    """Measured host->device bandwidth (bytes/s) of the feed's own upload:
-    from pinned memory on a card (``torch.cuda.synchronize`` ends the timed
-    copy), a plain copy on the CPU. A small copy first pays the
-    first-transfer setup, then one four-frame block is timed."""
-    import torch
-    dev = torch.device(device)
-    cuda = dev.type == "cuda"
-    blk = torch.zeros((4, rh, rw), dtype=torch.uint8, pin_memory=cuda)
-    dst = torch.empty(blk.shape, dtype=torch.uint8, device=dev)
-
-    def copy():
-        dst.copy_(blk, non_blocking=cuda)
-        if cuda:
-            torch.cuda.synchronize(dev)
-
-    dst[:1, :1].copy_(blk[:1, :1])
-    copy()
-    t = min(_timeit(copy) for _ in range(2))
-    return blk.numel() / max(t, 1e-9)
-
-
 def _lease_block_pool(shape: tuple, n: int, pinned: bool = False) -> list:
     """Check out a pre-faulted block-buffer pool for ``shape``.
 
@@ -761,11 +728,14 @@ class BlockVideoLoader(VanillaVideoLoader):
     uploader waits for the copy's event), and each tensor is marked as used
     on the consumer's stream (``record_stream``), so the caching allocator
     does not hand its memory to a later upload while the consumer's work
-    still reads it. Where the runtime frame is the raw frame or exactly
-    half of it (gray target, no mask, single-frame exposure), the
-    preprocess itself can run on the device (``_rawblockloop``): the
-    decode thread then only assembles raw frames, and the uploader runs
-    the cv2-exact downscale and gray conversion after the copy. An
+    still reads it. The decode loop follows from the input alone
+    (``_device_preproc_gate``): where the runtime frame is the raw frame
+    or exactly half of it (gray target, no mask, single-frame exposure)
+    and the source is gray, the preprocess runs on the device
+    (``_rawblockloop``): the decode thread then only assembles raw frames,
+    and the uploader runs the cv2-exact downscale and gray conversion
+    after the copy; every other input, a colour source too, takes the
+    host preprocess (``_blockloop``). An
     in-memory gray source is staged block by block into a leased ring
     (``_StagingRing``) whose slots are refilled only once their upload has
     completed, so every upload to a card reads pinned memory, a short
@@ -782,7 +752,6 @@ class BlockVideoLoader(VanillaVideoLoader):
                  maxsize: int = 4, keep_color_stacks: bool = False,
                  device_put: bool = False, device="cpu",
                  spans: Optional[StageTimer] = None, **kwargs: Any) -> None:
-        import os
         if block_frames is None:
             block_frames = int(os.environ.get("METDETPY_TPU_BLOCK_FRAMES",
                                               DEFAULT_BLOCK_FRAMES))
@@ -796,7 +765,7 @@ class BlockVideoLoader(VanillaVideoLoader):
         self.device = device
         # the span recorder of the decode and uploader threads (the call's
         # own, where detect_video hands it in), and what the loader found
-        # out besides: the placement and its probe
+        # out besides: the placement
         self.spans = StageTimer() if spans is None else spans
         self.stage_stats: dict = {}
         self._stop_requested = False
@@ -806,10 +775,8 @@ class BlockVideoLoader(VanillaVideoLoader):
         self._upload_stream = None
         super().__init__(*args, **kwargs)
         # device-put mode: blocks are uploaded by the loader (see the class
-        # docstring) and the queue carries (device tensor, n_real) pairs.
-        # Opt-out: METDETPY_TPU_LOADER_DEVICE_PUT=0.
-        self.device_put_mode = device_put and os.environ.get(
-            "METDETPY_TPU_LOADER_DEVICE_PUT", "1") != "0"
+        # docstring) and the queue carries (device tensor, n_real) pairs
+        self.device_put_mode = device_put
 
     @property
     def _pinned(self) -> bool:
@@ -852,22 +819,18 @@ class BlockVideoLoader(VanillaVideoLoader):
             import torch
             if self._upload_stream is None:
                 self._upload_stream = torch.cuda.Stream(device=self.device)
-        down2 = self._device_preproc_gate()
-        target = (self._rawblockloop
-                  if down2 is not None
-                  and self._transport_prefers_device_preproc(down2)
-                  else self._blockloop)
-        # async-upload mode: the decode thread hands completed blocks to a
-        # dedicated uploader thread, so decode and the upload overlap.
-        # Bounded to UPLOAD_DEPTH (3) queued blocks: a pooled slot is
-        # reused only after pool_size (>= 12) newer blocks, so 3 queued + 1
-        # staging can never alias a slot the decoder is refilling (a
-        # staging ring's slot only after its upload has completed).
+        target = (self._blockloop if self._device_preproc_gate() is None
+                  else self._rawblockloop)
+        # device-put mode: the decode thread hands completed blocks to the
+        # uploader thread, so decode and the upload overlap. Bounded to
+        # UPLOAD_DEPTH (3) queued blocks: a pooled slot is reused only
+        # after pool_size (>= 12) newer blocks, so 3 queued + 1 staging can
+        # never alias a slot the decoder is refilling (a staging ring's
+        # slot only after its upload has completed).
         self._upload_queue = None
         self._upload_thread = None
         self._upload_stop = None
-        if self.device_put_mode and os.environ.get(
-                "METDETPY_TPU_ASYNC_UPLOAD", "1") != "0":
+        if self.device_put_mode:
             self._upload_queue = queue.Queue(maxsize=self.UPLOAD_DEPTH)
             self._upload_stop = threading.Event()
             self._upload_thread = threading.Thread(
@@ -880,55 +843,19 @@ class BlockVideoLoader(VanillaVideoLoader):
                                        daemon=True)
         self.thread.start()
 
-    def _transport_prefers_device_preproc(self, down2: bool) -> bool:
-        """Choose the preprocess placement from the measured link and host
-        speeds.
-
-        The device preprocess uploads raw blocks -- 4x the bytes at a 2:1
-        downscale -- trading host resize work for upload bandwidth. So the
-        automatic mode probes both once per start(): the upload's bytes
-        per second and the host's cv2 resize of one frame, and keeps the
-        extra upload only if the link moves the extra bytes faster than the
-        host resizes. ``METDETPY_TPU_DEVICE_PREPROC=force`` skips the probe
-        (always the device); ``=0`` is handled by the gate.
-        """
-        if not down2:
-            return True  # raw == runtime size: no extra bytes either way
-        if os.environ.get("METDETPY_TPU_DEVICE_PREPROC", "1") == "force":
-            return True
-        rw, rh = self.decode_size
-        w, h = self.runtime_size
-        with self.spans.span("loader.probe"):
-            t_host = _probe_host_resize_s(rh, rw, w, h)
-            bw = _probe_h2d_bps(rh, rw, self.device)
-        extra_s = (rw * rh - w * h) / bw  # per-frame extra upload time
-        prefer = extra_s < t_host
-        self.stage_stats["preproc_probe"] = {
-            "h2d_gbps": round(bw / 1e9, 3),
-            "host_resize_ms": round(t_host * 1e3, 3),
-            "extra_upload_ms": round(extra_s * 1e3, 3),
-            "device_preproc": prefer,
-        }
-        self.logger.debug(
-            f"preproc placement probe: link {bw / 1e9:.2f} GB/s, host "
-            f"resize {t_host * 1e3:.2f} ms/frame, extra upload "
-            f"{extra_s * 1e3:.2f} ms/frame -> "
-            f"{'device' if prefer else 'host'} preprocess")
-        return prefer
-
     def _device_preproc_gate(self) -> Optional[bool]:
-        """Whether the whole preprocess can run on the device (cv2-exact:
+        """Whether the whole preprocess runs on the device (cv2-exact:
         2:1 downscale + BT.601 gray, ops.transforms.make_block_preprocess),
         letting the decode thread assemble raw blocks (the host does only
         the codec decode). Returns the down2 flag, or None for the host
-        path.
+        path; the same on every device.
 
         Conditions: device-put mode, gray target, no mask/debayer/colour
         stacks, single-frame exposure, linear interpolation, and the
-        runtime size either equal to or exactly half the raw size."""
+        runtime size either equal to or exactly half the raw size. A
+        colour source still goes to the host path (``_rawblockloop`` sees
+        it in its first frames)."""
         if not self.device_put_mode or self.keep_color_stacks:
-            return None
-        if os.environ.get("METDETPY_TPU_DEVICE_PREPROC", "1") == "0":
             return None
         if (not self.grayscale or self.preprocess.masked or self.debayer
                 or self.exp_frame != 1
@@ -985,13 +912,11 @@ class BlockVideoLoader(VanillaVideoLoader):
         return _StagingRing(self._lease((n,) + block, 1)[0])
 
     def _rawblockloop(self):
-        """Raw-block decode loop of the device preprocess: frames are
+        """Raw-block decode loop of the device preprocess: gray frames are
         copied verbatim into raw-size block buffers; the upload runs the
         exact resize and gray conversion on the device after its copy.
-        Colour sources upload 3x the gray bytes; unless
-        METDETPY_TPU_DEVICE_PREPROC_COLOR=1 they go to the host-preprocess
-        loop instead."""
-        import os as _os
+        A colour source, seen in its first frames, goes to the
+        host-preprocess loop instead."""
         from ..ops.transforms import make_block_preprocess
         spans = self.spans
         loop = spans.span("loader.loop")
@@ -999,6 +924,7 @@ class BlockVideoLoader(VanillaVideoLoader):
         merge = spans.span("loader.merge")
         handed_off = False  # to _blockloop, which ends the stream itself
         try:
+            down2 = self._device_preproc_gate()
             src = getattr(self.video, "frames", None)
             if (isinstance(self.video, NumpyVideoWrapper)
                     and isinstance(src, np.ndarray) and src.ndim == 3
@@ -1011,7 +937,6 @@ class BlockVideoLoader(VanillaVideoLoader):
                 # refilled once its upload has completed; nothing of the
                 # caller's array is kept from one call to the next.
                 import torch
-                down2 = self._device_preproc_gate()
                 self._dev_preproc_fn = make_block_preprocess(
                     bool(down2), color=False)
                 self.stage_stats["placement"] = "device"
@@ -1038,22 +963,18 @@ class BlockVideoLoader(VanillaVideoLoader):
                 first = self._read_raw_chunk(self.PREPROC_CHUNK)
             if not first:
                 return
-            color = first[0].ndim == 3
-            if color and _os.environ.get(
-                    "METDETPY_TPU_DEVICE_PREPROC_COLOR", "0") != "1":
+            if first[0].ndim == 3:   # colour: the host preprocess
                 self._peeked = first
                 handed_off = True
                 loop.__exit__(None, None, None)
                 self._blockloop()
                 return
-            down2 = self._device_preproc_gate()
-            self._dev_preproc_fn = make_block_preprocess(bool(down2), color)
+            self._dev_preproc_fn = make_block_preprocess(bool(down2),
+                                                         color=False)
             self.stage_stats["placement"] = "device"
             rw, rh = self.decode_size
-            block_shape = ((self.block_frames, rh, rw, 3) if color
-                           else (self.block_frames, rh, rw))
-            pool_size = self.block_queue.maxsize + int(
-                _os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6)) + 2
+            block_shape = (self.block_frames, rh, rw)
+            pool_size = self.block_queue.maxsize + PIPELINE_DEPTH + 2
             block_pool = self._lease(block_shape, pool_size)
             pool_idx = 0
             block = block_pool[pool_idx]
@@ -1091,13 +1012,10 @@ class BlockVideoLoader(VanillaVideoLoader):
         finally:
             if not handed_off:
                 loop.__exit__(None, None, None)
-                if _os.environ.get("METDETPY_TPU_LOADER_STATS"):
-                    self._log_stats("loader stats (raw): ")
                 self.read_stopped = True
                 self._put_eos()
 
     def _blockloop(self):
-        import os as _os
         from concurrent.futures import ThreadPoolExecutor
         spans = self.spans
         loop = spans.span("loader.loop")
@@ -1108,18 +1026,17 @@ class BlockVideoLoader(VanillaVideoLoader):
         w, h = self.runtime_size
         n_raw_total = (self.iterations // e) * e
         # Pre-allocated, PRE-FAULTED pool of block buffers, reused
-        # round-robin. Allocating a fresh 33MB block per 64 frames looks
-        # harmless but measured 0.7-6 s per np.empty while the TPU client
-        # streams previous blocks (fresh mmap + first-touch faults + THP
-        # compaction contending with the transfer pump) -- it was 75-85%
-        # of e2e wall time. A buffer re-enters use only after
+        # round-robin (leased across calls, pinned where the loader uploads
+        # to a card). A fresh 33MB block per 64 frames means a fresh mmap
+        # and first-touch faults for every block, which under THP
+        # compaction measured 0.7-6 s per np.empty while earlier blocks
+        # streamed to the device. A buffer re-enters use only after
         # pool_size-1 newer blocks were queued/dispatched/collected, by
         # which point its device transfer has long completed. Color
         # loaders (grayscale=False, e.g. MLDetector) carry 3 channels.
         block_shape = (self.block_frames, h, w) if self.grayscale \
             else (self.block_frames, h, w, 3)
-        pool_size = self.block_queue.maxsize + int(
-            _os.environ.get("METDETPY_TPU_PIPELINE_DEPTH", 6)) + 2
+        pool_size = self.block_queue.maxsize + PIPELINE_DEPTH + 2
         block_pool = self._lease(block_shape, pool_size)
         self.stage_stats["placement"] = "host"
         pool_idx = 0
@@ -1132,7 +1049,7 @@ class BlockVideoLoader(VanillaVideoLoader):
         # direct path: preprocess straight into the block slot (zero
         # per-frame allocations -- fresh 0.5MB resize outputs showed the
         # same mmap/THP stalls as fresh blocks; and one GIL handoff per
-        # frame instead of pool-scheduling churn on this 1-core host)
+        # frame instead of a thread pool's scheduling churn)
         direct = not self.keep_color_stacks and not self.debayer
         if direct and e > 1:
             merge_scratch = np.zeros(block_shape[1:], np.uint8)
@@ -1297,20 +1214,10 @@ class BlockVideoLoader(VanillaVideoLoader):
             self._thread_exc = exc
         finally:
             loop.__exit__(None, None, None)
-            if _os.environ.get("METDETPY_TPU_LOADER_STATS"):
-                self._log_stats("loader stats: ")
             if pool is not None:
                 pool.shutdown(wait=False)
             self.read_stopped = True
             self._put_eos()
-
-    def _log_stats(self, head: str) -> None:
-        """Log the loader's figures (METDETPY_TPU_LOADER_STATS)."""
-        figures = {k: v for k, v in self.spans.summary().items()
-                   if k.startswith("loader_")}
-        figures.update(self.stage_stats)
-        self.logger.info(head + ", ".join(
-            f"{k}={v}" for k, v in figures.items()))
 
     def _put_block(self, block: np.ndarray, free=None) -> None:
         """Queue a completed block with indefinite backpressure: the
@@ -1318,32 +1225,15 @@ class BlockVideoLoader(VanillaVideoLoader):
         seconds), so a bounded put timeout must retry, not kill the decode
         thread. Stops promptly when the loader is stopped.
 
-        In device-put mode the queue carries (device tensor, n_real)
-        pairs; the upload runs in the uploader thread when one is active
-        (async-upload mode, overlapping decode with the copy) or inline
-        here otherwise, and ``free`` (a staging ring's slot) is called
-        once it has completed. The span ``loader.qput`` times it (a wait,
-        but for an upload made here)."""
+        In device-put mode the block goes to the uploader thread, which
+        calls ``free`` (a staging ring's slot) once the copy out of it has
+        completed. The span ``loader.qput`` times the wait."""
+        q, item = ((self._upload_queue, (block, free))
+                   if self.device_put_mode else (self.block_queue, block))
         with self.spans.span("loader.qput", wait=True):
-            if self.device_put_mode:
-                uq = self._upload_queue
-                if uq is not None:
-                    item = (block, free)
-                    while True:
-                        try:
-                            uq.put(item, timeout=PUT_TIMEOUT)
-                            return
-                        except queue.Full:
-                            if self.read_stopped:
-                                raise
-                item = self._stage_block(block)
-                if free is not None:
-                    free()
-            else:
-                item = block
             while True:
                 try:
-                    self.block_queue.put(item, timeout=PUT_TIMEOUT)
+                    q.put(item, timeout=PUT_TIMEOUT)
                     return
                 except queue.Full:
                     if self.read_stopped:
@@ -1453,11 +1343,9 @@ class BlockVideoLoader(VanillaVideoLoader):
         """Deliver the end-of-stream sentinel. It must not be dropped:
         with a fast producer the queue is routinely full here, and a lost
         None makes the consumer eat the full pop timeout at end of stream.
-        In async-upload mode it goes through the upload queue, so it stays
+        In device-put mode it goes through the upload queue, so it stays
         behind the uploads in flight."""
-        q = self._upload_queue
-        if q is None:
-            q = self.block_queue
+        q = self._upload_queue if self.device_put_mode else self.block_queue
         for _ in range(120):
             try:
                 q.put(None, timeout=PUT_TIMEOUT)

@@ -222,8 +222,8 @@ def _probe_link_bps(device) -> tuple[float, float]:
 
     A four-frame 1080p gray block goes up from pinned memory and two of
     its frames come back into pinned memory, each leg timed from its
-    launch to ``torch.cuda.synchronize`` (the form of the video loader's
-    ``_probe_h2d_bps``); a small copy first pays the first-transfer setup.
+    launch to ``torch.cuda.synchronize``; a small copy first pays the
+    first-transfer setup.
     Three rounds, the best rate per direction (the JAX package's rule: the
     job rides many transfers, so capability, not one instant, is the
     placement's input). On the CPU both legs are plain copies."""

@@ -442,11 +442,9 @@ def test_preset_with_recheck_on_card_matches_cpu(cuda_device, monkeypatch,
 
 # -- the loader's device feed and the photo batch upload ----------------------
 
-def _feed_blocks(frames, device_put, monkeypatch, **env):
+def _feed_blocks(frames, device_put):
     from metdetpy_tpu_torch.io.videoloader import BlockVideoLoader
     from metdetpy_tpu_torch.io.videowrapper import NumpyVideoWrapper
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
     ld = BlockVideoLoader(NumpyVideoWrapper, frames, resize_option=[48, 32],
                           exp_option="real-time", merge_func="max",
                           grayscale=True, block_frames=8,
@@ -468,21 +466,19 @@ def _feed_blocks(frames, device_put, monkeypatch, **env):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preproc", ["0", "force"])
-def test_device_feed_on_card_equals_host_blocks(cuda_device, monkeypatch,
-                                                preproc):
-    """The loader's uploads (pinned pool and side stream with the host
-    preprocess; raw blocks and the device 2:1 preprocess when forced)
-    give the host path's blocks, the tail padded on the card."""
-    frames = np.random.default_rng(SEED).integers(0, 255, (21, 64, 96, 3),
-                                                  np.uint8)
-    want, _, _ = _feed_blocks(frames, False, monkeypatch)
-    got, stats, pinned = _feed_blocks(
-        frames, True, monkeypatch, METDETPY_TPU_DEVICE_PREPROC=preproc,
-        METDETPY_TPU_DEVICE_PREPROC_COLOR="1")
+@pytest.mark.parametrize("source", ["gray", "colour"])
+def test_device_feed_on_card_equals_host_blocks(cuda_device, source):
+    """The loader's uploads (a gray source at twice the runtime size: raw
+    blocks and the device 2:1 preprocess; a colour source: pinned pool and
+    side stream with the host preprocess) give the host path's blocks, the
+    tail padded on the card."""
+    shape = (21, 64, 96) + ((3,) if source == "colour" else ())
+    frames = np.random.default_rng(SEED).integers(0, 255, shape, np.uint8)
+    want, _, _ = _feed_blocks(frames, False)
+    got, stats, pinned = _feed_blocks(frames, True)
     np.testing.assert_array_equal(got, want)
     assert stats["loader_h2d_bytes"] > 0
-    assert stats["placement"] == ("host" if preproc == "0" else "device")
+    assert stats["placement"] == ("device" if source == "gray" else "host")
     assert pinned
 
 
@@ -515,7 +511,6 @@ def test_detect_video_on_card_uploads_only_pinned_memory(
     from torch.profiler import ProfilerActivity, profile
     gray = feed == "gray_1080p"
     if gray:   # the raw upload and the device 2:1 preprocess
-        monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "force")
         w, h, secs, preset = 1920, 1080, 4.36, "m3det_normal"   # 64 + 45
     else:
         monkeypatch.setenv("METDETPY_TPU_YOLO_HW", "96x96")

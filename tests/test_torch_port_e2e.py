@@ -19,6 +19,7 @@ from metdetpy_tpu.api import detect_video as jax_detect_video
 from metdetpy_tpu.structs import MainDetectCfg
 from metdetpy_tpu.synth import SynthMeteor, generate_meteor_video, write_video
 from metdetpy_tpu.utils import relative2abs_path
+from metdetpy_tpu_torch import api as tapi
 from metdetpy_tpu_torch.__main__ import main as cli_main
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.detectors.m3det import M3Detector
@@ -72,7 +73,7 @@ def test_mdrf_matches_jax(synth_frames, monkeypatch):
 def test_device_failure_recovery(synth_frames, monkeypatch):
     """A fault while collecting the first block resets the detector's
     device state once; the meteor in a later block is still found."""
-    monkeypatch.setenv("METDETPY_TPU_DEFERRED_COLLECT", "0")
+    monkeypatch.setattr(tapi, "_collect_deferred", lambda *a: False)
     monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
     orig_collect = M3Detector.collect
     orig_reset = M3Detector.reset_device_state

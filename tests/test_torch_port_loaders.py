@@ -1,7 +1,7 @@
 """PyTorch port's loader layer on the CPU: the frames of every loader
 against the JAX package's loaders, the device-put mode (staging, the tail
-block, the uploader's EOS order, the device preprocess and its placement
-probe), the per-frame loop, the process loader's host-only worker, the
+block, the uploader's EOS order, the device preprocess and the placement
+its input decides), the per-frame loop, the process loader's host-only worker, the
 recheck's second loader, and ``detect_video`` in each feed mode against
 the JAX package's MDRF.
 
@@ -170,21 +170,29 @@ def test_process_loader_matches_block_loader_and_stays_off_cuda(keep_color):
                                       ref.recheck_stack(0, 23))
 
 
-@pytest.mark.parametrize("async_upload", ["1", "0"])
-@pytest.mark.parametrize("preproc", ["0", "1"])
-def test_device_put_mode_stages_padded_tensors(monkeypatch, async_upload,
-                                               preproc):
+# (source frames, resize option, the placement the input decides)
+PUT_SOURCES = {
+    "gray_runtime_size": ((32, 48), None, "device"),
+    "gray_2to1": ((32, 48), [24, 16], "device"),
+    "gray_other_resize": ((32, 48), [30, 20], "host"),
+    "colour": ((32, 48, 3), [24, 16], "host"),
+}
+
+
+@pytest.mark.parametrize("source", list(PUT_SOURCES))
+def test_device_put_mode_stages_padded_tensors(source):
     """On the CPU the staging is a copy into a fresh tensor: pairs of
     (block_frames-frame tensor, n_real), the tail padded with its last
     frame, in order, the EOS behind the last upload; the bytes counted.
-    With the device preprocess allowed, a frame at the runtime size takes
-    the raw loop (an in-memory source staged into the pinned ring's
-    slots)."""
-    monkeypatch.setenv("METDETPY_TPU_ASYNC_UPLOAD", async_upload)
-    monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", preproc)
-    frames = _slow_shutter_video(n_exposures=21, exp_frames=1)
+    The input decides the placement: a gray frame at the runtime size or
+    twice it takes the raw loop (an in-memory source staged into the
+    ring's slots, the device preprocess after the upload), another
+    resize and a colour source the host preprocess."""
+    hw, resize, placement = PUT_SOURCES[source]
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 255, (21,) + hw, dtype=np.uint8)
     kw = dict(exp_option="real-time", merge_func="max", grayscale=True,
-              block_frames=8)
+              block_frames=8, resize_option=resize)
     host = _blocks(tvl.BlockVideoLoader(TNumpy, frames, **kw))
     ld = tvl.BlockVideoLoader(TNumpy, frames, device_put=True, **kw)
     assert ld.device_put_mode and not ld._pinned
@@ -202,12 +210,14 @@ def test_device_put_mode_stages_padded_tensors(monkeypatch, async_upload,
         assert isinstance(t, torch.Tensor) and t.shape[0] == 8
         np.testing.assert_array_equal(t[:n].numpy(), h)
         assert bool((t[n:] == t[n - 1]).all())
-    assert perf["loader_h2d_bytes"] == frames.nbytes
+    assert perf["loader_h2d_bytes"] == (
+        frames.nbytes if placement == "device"
+        else sum(h.nbytes for h in host))
     assert perf["loader_h2d_s"] > 0
-    assert stats["placement"] == ("host" if preproc == "0" else "device")
+    assert stats["placement"] == placement
 
 
-def test_device_preproc_gate_conditions(monkeypatch):
+def test_device_preproc_gate_conditions():
     gray = np.zeros((8, 32, 48), np.uint8)
 
     def gate(**kw):
@@ -229,50 +239,41 @@ def test_device_preproc_gate_conditions(monkeypatch):
         TNumpy, slow, resize_option=[24, 16], exp_option=2 / 25,
         merge_func="max", grayscale=True, device_put=True,
         block_frames=8)._device_preproc_gate() is None
-    monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "0")
-    assert gate(resize_option=[24, 16]) is None
 
 
-def test_preproc_placement_probe(monkeypatch):
-    """The automatic placement keeps the raw upload only when the link
-    moves the extra bytes faster than the host resizes; ``force`` skips
-    the probe; the probe's numbers go into stage_stats."""
-    gray = np.zeros((8, 32, 48), np.uint8)
-
-    def loader():
-        return tvl.BlockVideoLoader(
-            TNumpy, gray, resize_option=[24, 16], exp_option="real-time",
-            merge_func="max", grayscale=True, device_put=True,
-            block_frames=8)
-
-    monkeypatch.setattr(tvl, "_probe_h2d_bps", lambda rh, rw, dev: 10e9)
-    monkeypatch.setattr(tvl, "_probe_host_resize_s",
-                        lambda rh, rw, w, h: 5e-3)
-    ld = loader()
-    assert ld._transport_prefers_device_preproc(True) is True
-    assert ld.stage_stats["preproc_probe"]["device_preproc"] is True
-    monkeypatch.setattr(tvl, "_probe_h2d_bps", lambda rh, rw, dev: 20e3)
-    ld2 = loader()
-    assert ld2._transport_prefers_device_preproc(True) is False
-    assert ld2.stage_stats["preproc_probe"]["h2d_gbps"] == 0.0
-    called = []
-    monkeypatch.setattr(tvl, "_probe_h2d_bps",
-                        lambda rh, rw, dev: called.append(1) or 1e9)
-    assert loader()._transport_prefers_device_preproc(False) is True
-    monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "force")
-    assert loader()._transport_prefers_device_preproc(True) is True
-    assert not called
-    # the real probe on the CPU returns a rate
-    assert tvl._probe_h2d_bps(16, 24, "cpu") > 0
+def test_placement_follows_the_gate_at_every_start(monkeypatch):
+    """The placement is the gate's, with no probe: each start of a
+    loader takes the same loop and gives the same blocks, a gray feed
+    at twice the runtime size the device preprocess, and the host one
+    where the gate is made to refuse it."""
+    frames = np.random.default_rng(3).integers(0, 255, (21, 32, 48),
+                                               dtype=np.uint8)
+    kw = dict(resize_option=[24, 16], exp_option="real-time",
+              merge_func="max", grayscale=True, block_frames=8)
+    want = np.concatenate(_blocks(tvl.BlockVideoLoader(TNumpy, frames,
+                                                       **kw)))
+    for refused in (False, True):
+        ld = tvl.BlockVideoLoader(TNumpy, frames, device_put=True, **kw)
+        if refused:
+            monkeypatch.setattr(ld, "_device_preproc_gate", lambda: None)
+        for _ in range(3):
+            ld.start()
+            got = []
+            while (item := ld.pop_block()) is not None:
+                got.append(item[0][:item[1]].numpy().copy())
+            np.testing.assert_array_equal(np.concatenate(got), want)
+            assert ld.stage_stats == {
+                "placement": "host" if refused else "device"}
+            assert not any("probe" in k for k in ld.spans.summary())
+        ld.release()
 
 
 @pytest.mark.parametrize("source", ["gray_memory", "gray_frames", "color"])
-def test_device_preprocess_stream_equals_host_path(monkeypatch, source):
+def test_device_preprocess_stream_equals_host_path(source):
     """The raw-block loop with the device preprocess gives the host path's
-    blocks: the staged in-memory gray source, a gray source read frame
-    by frame, and a colour source (which goes to the host loop unless the
-    colour switch is on; with it, on the device)."""
-    monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "force")
+    blocks: the staged in-memory gray source and a gray source read frame
+    by frame; a colour source, seen in its first frames, goes to the host
+    loop and gives them too."""
     rng = np.random.default_rng(11)
     color = source == "color"
     shape = (21, 32, 48, 3) if color else (21, 32, 48)
@@ -283,13 +284,10 @@ def test_device_preprocess_stream_equals_host_path(monkeypatch, source):
               merge_func="max", grayscale=True, block_frames=8)
     host = np.concatenate(_blocks(tvl.BlockVideoLoader(TNumpy, frames,
                                                        **kw)))
-    for switch in (["0", "1"] if color else ["0"]):
-        monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC_COLOR", switch)
-        ld = tvl.BlockVideoLoader(TNumpy, frames, device_put=True, **kw)
-        dev = np.concatenate(_blocks(ld))
-        np.testing.assert_array_equal(dev, host)
-        want = "host" if (color and switch == "0") else "device"
-        assert ld.stage_stats["placement"] == want
+    ld = tvl.BlockVideoLoader(TNumpy, frames, device_put=True, **kw)
+    dev = np.concatenate(_blocks(ld))
+    np.testing.assert_array_equal(dev, host)
+    assert ld.stage_stats["placement"] == ("host" if color else "device")
 
 
 def _raw_feed(frames, **kw):
@@ -332,15 +330,16 @@ def test_in_memory_feed_stages_blocks_equal_to_the_source(n_frames,
     assert tvl._POOL_CACHE.get(key)
 
 
-@pytest.mark.parametrize("async_upload", ["1", "0"])
+@pytest.mark.parametrize("slots", [2, tvl.BlockVideoLoader.UPLOAD_DEPTH + 2])
 def test_staging_ring_refills_a_slot_only_after_its_upload(monkeypatch,
-                                                           async_upload):
-    """A ring of the least depth (two slots, under a queue of three) with
-    a slow upload and a slow consumer, over 44 blocks: every uploaded
-    block equals its source frames, so no slot was refilled before the
-    copy out of it had completed, and no slot was handed out twice."""
-    monkeypatch.setenv("METDETPY_TPU_ASYNC_UPLOAD", async_upload)
-    monkeypatch.setattr(tvl, "_STAGE_RING_BYTES", 1)
+                                                           slots):
+    """A ring of the least depth (two slots, under a queue of three) and
+    one of the full depth, with a slow upload and a slow consumer, over
+    44 blocks: every uploaded block equals its source frames, so no slot
+    was refilled before the copy out of it had completed, and no slot was
+    handed out twice."""
+    if slots == 2:
+        monkeypatch.setattr(tvl, "_STAGE_RING_BYTES", 1)
     frames = np.random.default_rng(7).integers(0, 255, (44 * 8 - 3, 16, 24),
                                                dtype=np.uint8)
     ld = _raw_feed(frames)
@@ -375,6 +374,7 @@ def test_staging_ring_refills_a_slot_only_after_its_upload(monkeypatch,
     while (item := ld.pop_block()) is not None:
         time.sleep(0.001)
         got.append(item[0][:item[1]].clone().numpy())
+    assert len(ld._leased_pool[1][0]) == slots
     ld.release()
     assert ld._leased_pool is None
     assert len(got) == 44 and not fault
@@ -459,34 +459,37 @@ def _dicts(mdrf):
     return [r.to_dict() for r in mdrf.results]
 
 
-@pytest.mark.parametrize("mode", ["device_put", "host", "force"])
+@pytest.mark.parametrize("mode", ["device_put", "host", "gate_refused"])
 def test_detect_video_feed_modes_match_jax(clip_2x, monkeypatch, mode):
     """detect_video on a 2:1 gray clip: the loader's device-put mode (the
-    default), device-put off, and the device preprocess forced: the same
-    MDRF as the JAX package; which placement ran is in the performance."""
+    default, where the input puts the preprocess on the device), the
+    detector uploading (the loader's upload off through the api's
+    decision), and device-put mode at a resize the gate refuses (the host
+    preprocess): the same MDRF as the JAX package; which placement ran is
+    in the performance."""
+    from metdetpy_tpu_torch import api as tapi
     monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
-    want = jax_detect_video(clip_2x.copy(), None, _cfg(MainDetectCfg),
+    resize = 320 if mode == "gate_refused" else W
+    want = jax_detect_video(clip_2x.copy(), None,
+                            _cfg(MainDetectCfg, resize=resize),
                             work_mode="backend")
     if mode == "host":
-        monkeypatch.setenv("METDETPY_TPU_LOADER_DEVICE_PUT", "0")
-    if mode == "force":
-        monkeypatch.setenv("METDETPY_TPU_DEVICE_PREPROC", "force")
-    got = detect_video(clip_2x.copy(), None, _cfg(TMainDetectCfg),
+        monkeypatch.setattr(tapi, "_loader_uploads", lambda *a: False)
+    got = detect_video(clip_2x.copy(), None,
+                       _cfg(TMainDetectCfg, resize=resize),
                        work_mode="backend", device="cpu")
     assert any(t.category == "METEOR" for r in want.results
                for t in r.target)
     assert _dicts(got) == _dicts(want)
     perf = got.performance
+    assert perf["loader_placement"] == (
+        "device" if mode == "device_put" else "host")
     if mode == "host":
-        assert perf["loader_placement"] == "host"
         assert "loader_h2d_bytes" not in perf
-    else:
-        assert perf["loader_h2d_bytes"] > 0
-    if mode == "force":
-        assert perf["loader_placement"] == "device"
+    elif mode == "device_put":
         assert perf["loader_h2d_bytes"] == clip_2x.nbytes
-    if mode == "device_put":
-        assert "device_preproc" in perf["loader_preproc_probe"]
+    else:
+        assert perf["loader_h2d_bytes"] == perf["frames"] * 320 * 180
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from metdetpy_tpu.detectors import m3det as jm3
 from metdetpy_tpu.structs import MainDetectCfg
 from metdetpy_tpu.synth import SynthMeteor, generate_meteor_video
 from metdetpy_tpu.utils import relative2abs_path
+from metdetpy_tpu_torch import api as tapi
 from metdetpy_tpu_torch import checkpoint as tck
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.detectors import m3det as tm3
@@ -438,8 +439,12 @@ def _run_with_fault(monkeypatch, detector_cls, run, frames, k: int):
 
 @pytest.mark.parametrize("k", [2, 6])
 def test_records_after_recovery_equal_jax(fault_clip, monkeypatch, k):
+    # the JAX package reads its switches; the port takes the same choices
+    # through its own seams
     monkeypatch.setenv("METDETPY_TPU_DEFERRED_COLLECT", "0")
     monkeypatch.setenv("METDETPY_TPU_PIPELINE_DEPTH", "1")
+    monkeypatch.setattr(tapi, "_collect_deferred", lambda *a: False)
+    monkeypatch.setattr(tapi, "PIPELINE_DEPTH", 1)
     monkeypatch.setenv("METDETPY_TPU_BLOCK_FRAMES", "32")
     monkeypatch.setenv("METDETPY_TPU_MAX_POINTS", "2048")
     want, jresets = _run_with_fault(
