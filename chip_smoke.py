@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. Build: print the card's name and power limit, build the five CUDA
+1. Build: print the card's name and power limit, build the eight CUDA
    kernels from ``metdetpy_tpu_torch/csrc`` and print what ``ptxas``
    reports for each (registers, shared memory, spills).
 2. Kernels: call each kernel's wrapper on the card at the shapes the main
@@ -18,10 +18,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    vote is also held and timed on a raster-ordered point list (a streak
    and salt noise, compacted as the main path compacts them), where
    neighbours in the list share rho bins; the pick is timed beside an
-   empty kernel of its grid; the peak ladder runs on the vote's output.
-   Then the ragged cases of ``metdetpy_tpu_torch.ops.kernel_cases`` for
-   the vote, the pick and the peak ladder (with ``find_peaks`` on each peak
-   case), exact, untimed.
+   empty kernel of its grid; the peak ladder runs on the vote's output;
+   the segment walk's three kernels (corner planes, walk geometry, walk
+   finish) on a chunk of 8 frames with drawn segments and 64 peaks each.
+   Then the walk phase: the three on every case of ``WALK_CASES``, exact,
+   one launch each, ``hough.walk_segments`` on the card against the CPU on
+   each, and the main chunk's whole walk (four launches) warm and cold
+   beside its plain composition on the card. Then the ragged cases of
+   ``metdetpy_tpu_torch.ops.kernel_cases`` for the vote, the pick and the
+   peak ladder (with ``find_peaks`` on each peak case), exact, untimed.
 3. End to end: a 960x540, 25 fps, 12 s synthetic colour clip with one
    meteor through ``metdetpy_tpu_torch.api.detect_video(..., device="cuda")``
    with the m3det_normal preset as shipped, recheck on (only the frame
@@ -59,8 +64,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    uploaded, the exact 2:1 downscale run by the uploader), once with the
    loader's upload off (host preprocess, the detector uploads), once
    placed by the loader's probe; the MDRFs equal and equal to the CPU's,
-   the placement as asked, bytes uploaded by the loader, all five kernels
-   launched in each run.
+   the placement as asked, bytes uploaded by the loader, all eight
+   kernels launched in each run.
 9. Loaders: ``m3det_normal`` (recheck on) at 960x540 through the Vanilla,
    Thread and Process loaders against the Block loader's MDRF of the same
    clip: equal for the Process loader; for the per-frame loaders, whose
@@ -158,10 +163,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    as shipped, recheck on, real-time) with a fresh ``HOME`` from a working
    directory outside the repo on the default device: its MDRF ``results``
    equal the in-tree main entry's (``metdetpy_tpu_torch.__main__.main``,
-   in-process, all five kernels launched), the fresh cache holds the five
-   kernel libraries under the in-tree build's hashed names, cold and warm
-   seconds, and a third run with ``METDETPY_TPU_TRACE_DIR`` set whose
-   trace holds a device event for each launch of the five kernels. (b)
+   in-process, all eight kernels launched), the fresh cache holds the
+   kernel libraries (one a source) under the in-tree build's hashed names,
+   cold and warm seconds, and a third run with ``METDETPY_TPU_TRACE_DIR``
+   set whose trace holds a device event for each launch of the eight
+   kernels. (b)
    ``detect_video`` on the same clip untraced and traced: records and
    launches equal, frames/s of both, the trace parses and holds a device
    event for each launch of each kernel, their summed device ms beside
@@ -385,6 +391,17 @@ def kernel_cases(dev: torch.device) -> dict:
     # the vote kernel's chunk of votes, with the main path's threshold
     peaks = (K.hough_vote(*vote), HOUGH_THRESHOLD,
              hough._peak_cuts(HOUGH_THRESHOLD, dev))
+    # the segment walk's chunk: 8 frames with drawn segments, 64 peaks each
+    from metdetpy_tpu_torch.ops import kernel_cases as C
+    wc = C.walk_case(C.WALK_CASES[0], dev, SEED)
+    t, k, s = *wc.theta_idx.shape, wc.s_dim
+    geo = (wc.rho_offset, wc.n_steps, H, W)
+    walk_v = K.walk_pick(K.corner_planes_plain(wc.imgs01, s),
+                         *K.walk_geom_plain(wc.theta_idx, wc.rho_idx, *geo,
+                                            s))
+    # picks of the in-range columns of ok peaks: what walk_finish reads
+    n_read = int((hough.walk_geom(wc.theta_idx, wc.rho_idx, *geo, s).inp
+                  & wc.peak_ok[..., None]).sum())
     return {
         "window_diff": (
             K.window_diff, K.window_diff_plain,
@@ -428,6 +445,33 @@ def kernel_cases(dev: torch.device) -> dict:
             # count); per bin: the 3x3 max (8) and the test (2)
             bound(peaks[0].numel() * 5 + (len(peaks[2]) + 1)
                   * FRAME_CHUNK * 4, peaks[0].numel() * 10)),
+        "corner_planes": (
+            K.corner_planes, K.corner_planes_plain, (wc.imgs01, s),
+            "metdetpy_tpu_torch/csrc/walk_segments.cu",
+            "metdetpy_tpu/ops/hough.py:240 pack_corners (plain XLA)",
+            # the u8 frames in, both u8 planes out; 3 shifts and 3 ORs an
+            # output byte
+            bound(t * H * W + 2 * t * s * s, 6 * 2 * t * s * s)),
+        "walk_geom": (
+            K.walk_geom, K.walk_geom_plain,
+            (wc.theta_idx, wc.rho_idx, *geo, s),
+            "metdetpy_tpu_torch/csrc/walk_segments.cu",
+            "metdetpy_tpu/ops/hough.py:354 _walk_geom (plain XLA)",
+            # the i64 peaks in, r (i32) and xmaj out; per column the step,
+            # two fma_f32 (a float64 product and sum each), floors and
+            # conversions: 12
+            bound(16 * t * k + 4 * t * k * s + t * k, 12 * t * k * s)),
+        "walk_finish": (
+            K.walk_finish, K.walk_finish_plain,
+            (walk_v, wc.theta_idx, wc.rho_idx, wc.peak_ok, wc.gaps, *geo,
+             wc.min_len),
+            "metdetpy_tpu_torch/csrc/walk_segments.cu",
+            "metdetpy_tpu/ops/hough.py:406 _finish_segments (plain XLA)",
+            # the picks of the in-range columns of ok peaks, the peaks (i64
+            # twice and ok) and gaps in, lines and ok out; per such column
+            # the sample again (12) and the acceptance (13)
+            bound(4 * n_read + 17 * t * k + 4 * t + 17 * t * k,
+                  25 * n_read)),
     }
 
 
@@ -572,6 +616,63 @@ def phase_ragged(dev: torch.device) -> None:
           f"peak_ladder and find_peaks and "
           f"{len(C.WINDOW_DIFF_STREAM_CASES)} of window_diff's stream axis "
           f"(one launch each) exact", flush=True)
+
+
+def phase_walk(dev: torch.device) -> dict:
+    """The segment walk's three kernels on WALK_CASES against their plain
+    versions, exact, one launch each; ``hough.walk_segments`` on the card
+    against the CPU on each case; the main chunk's walk (four launches)
+    and its plain composition on the card, warm and cold."""
+    from metdetpy_tpu_torch.ops import hough
+    from metdetpy_tpu_torch.ops import kernel_cases as C
+    from metdetpy_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    names = ("corner_planes", "walk_geom", "walk_finish")
+    for case in C.WALK_CASES:
+        c = C.walk_case(case, dev, SEED)
+        _, h, w = c.imgs01.shape
+        geo = (c.rho_offset, c.n_steps, h, w)
+        v = K.walk_pick(K.corner_planes_plain(c.imgs01, c.s_dim),
+                        *K.walk_geom_plain(c.theta_idx, c.rho_idx, *geo,
+                                           c.s_dim))
+        K.reset_launch_counts()
+        check_exact(f"corner_planes case {case[0]}", K.corner_planes,
+                    K.corner_planes_plain, (c.imgs01, c.s_dim))
+        check_exact(f"walk_geom case {case[0]}", K.walk_geom,
+                    K.walk_geom_plain,
+                    (c.theta_idx, c.rho_idx, *geo, c.s_dim))
+        check_exact(f"walk_finish case {case[0]}", K.walk_finish,
+                    K.walk_finish_plain, (v, c.theta_idx, c.rho_idx,
+                                          c.peak_ok, c.gaps, *geo,
+                                          c.min_len))
+        if any(K.LAUNCHES[n] != 1 for n in names):
+            fail(f"walk case {case[0]}: launches "
+                 f"{ {n: K.LAUNCHES[n] for n in names} }, expected 1 each")
+        cpu = C.walk_case(case, "cpu", SEED)
+        kw = dict(rho_offset=c.rho_offset, n_steps=c.n_steps,
+                  s_dim=c.s_dim, min_len=c.min_len)
+        got = hough.walk_segments(*c[:5], **kw)
+        want = hough.walk_segments(*cpu[:5], **kw)
+        if not all(torch.equal(g.cpu(), x) for g, x in zip(got, want)):
+            fail(f"walk_segments case {case[0]}: the card's lines differ "
+                 "from the CPU's")
+    c = C.walk_case(C.WALK_CASES[0], dev, SEED)
+    kw = dict(rho_offset=c.rho_offset, n_steps=c.n_steps, s_dim=c.s_dim,
+              min_len=c.min_len)
+    out = {"walk_shape": f"{tuple(c.imgs01.shape)}, K={c.theta_idx.shape[1]}"
+                         f", S={c.s_dim}",
+           "walk_ms": cuda_ms(lambda: hough.walk_segments(*c[:5], **kw), 20),
+           "walk_cold_ms": cold_ms(
+               lambda *a: hough.walk_segments(*a, **kw), tuple(c[:5])),
+           "walk_plain_ms": cuda_ms(
+               lambda: hough.walk_segments_plain(*c[:5], **kw), 5, 1)}
+    print(f"walk cases: {len(C.WALK_CASES)} of corner_planes, walk_geom and "
+          f"walk_finish exact (one launch each), walk_segments on the card "
+          f"equal to the CPU's; a chunk {out['walk_shape']}: "
+          f"{out['walk_ms']:.4f} ms warm, {out['walk_cold_ms']:.4f} ms cold "
+          f"(four launches), the plain composition {out['walk_plain_ms']:.4f}"
+          f" ms; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def preset_cfg(preset: str, resize="shipped", recheck=True, detector=None):
@@ -1649,7 +1750,10 @@ def phase_multistream(card: str) -> dict:
     want = {"window_diff": 2 + n_blocks, "median_binarize_close": 2 + n_blocks,
             "hough_vote": (2 + n_blocks) * chunks,
             "walk_pick": (2 + n_blocks) * chunks,
-            "peak_ladder": (2 + n_blocks) * chunks}
+            "peak_ladder": (2 + n_blocks) * chunks,
+            "corner_planes": (2 + n_blocks) * chunks,
+            "walk_geom": (2 + n_blocks) * chunks,
+            "walk_finish": (2 + n_blocks) * chunks}
     if len(caps) != 1 or launches != want:
         fail(f"multistream: {len(caps)} captures, launches {launches}, "
              f"expected one capture and {want} (one window_diff and one "
@@ -2499,8 +2603,9 @@ def phase_frozen_and_trace(card: str, rows: dict) -> dict:
                                       os.path.join(tmp, "trace"), launches)
     print(f"frozen (a) on {card}: MetDetPy.pyz built in {pack_s:.1f} s; "
           f"a 200-frame {W}x{H} MJPG AVI (m3det_normal as shipped, recheck "
-          f"on): cold start {runs['cold']:.1f} s (extraction, nvcc of 4 "
-          f"kernels into the empty cache, run), warm {runs['warm']:.1f} s, "
+          f"on): cold start {runs['cold']:.1f} s (extraction, nvcc of "
+          f"{len(want_libs)} kernel sources into the empty cache, run), "
+          f"warm {runs['warm']:.1f} s, "
           f"traced {runs['traced']:.1f} s; the in-tree main entry "
           f"in-process {tree_s:.1f} s; {len(tree)} record(s), equal in all "
           f"three runs; the cache's libraries {want_libs} are the in-tree "
@@ -2919,6 +3024,7 @@ def main() -> None:
                 fail(f"{name}: ptxas reports register spills")
     rows = phase_kernels(dev)
     phase_ragged(dev)
+    rows["walk_finish"].update(phase_walk(dev))
     launches = phase_end_to_end(card)
     phase_card_vs_cpu()
     phase_model(card)

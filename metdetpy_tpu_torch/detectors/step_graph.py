@@ -60,6 +60,7 @@ at each replay.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
 import time
 from typing import Callable, Optional
@@ -219,6 +220,12 @@ class StepGraph:
         before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # no automatic collection inside the capture: one that finds a
+        # dropped detector in a reference cycle gives its StepGraph back,
+        # and where one of its signature is idle already, frees its graphs,
+        # a call the capture forbids (it fails the capture)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # "thread_local": the loader's uploader thread (its own stream)
             # and the exporter's recheck may use the card while this thread
@@ -237,6 +244,8 @@ class StepGraph:
                 f"launches captured before the failure: {reached}): "
                 f"{type(exc).__name__}: {exc}") from exc
         finally:
+            if collecting:
+                gc.enable()
             launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
             for k, n in launched.items():
                 kernels.LAUNCHES[k] -= n  # captured, not run

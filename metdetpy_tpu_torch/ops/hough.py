@@ -12,7 +12,10 @@ cv2.HoughLinesP, reference MetLib/Detector.py:282-287, :347-352):
    (``kernels.peak_ladder`` tests and counts them on the card).
 4. **Segment walk** -- each peak line is walked along its major axis over
    the bit-packed corner planes (``kernels.walk_pick`` picks one plane row
-   per column), then the longest gap-tolerant run gives the segment.
+   per column), then the longest gap-tolerant run gives the segment
+   (``walk_segments``: on the card the planes, the walk geometry and the
+   run analysis are ``kernels.corner_planes``, ``walk_geom`` and
+   ``walk_finish``).
 
 The JAX package branches (``lax.cond``) on point and peak counts only for
 speed; here every chunk is computed densely, which changes nothing but
@@ -289,6 +292,47 @@ def corner_planes(imgs: torch.Tensor, s_dim: int) -> torch.Tensor:
     return planes
 
 
+def walk_segments_plain(imgs01: torch.Tensor, theta_idx: torch.Tensor,
+                        rho_idx: torch.Tensor, peak_ok: torch.Tensor,
+                        gaps: torch.Tensor, *, rho_offset: int, n_steps: int,
+                        s_dim: int, min_len: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spec of ``walk_segments``, and its route off the card:
+    ``corner_planes``, ``walk_geom``, ``kernels.walk_pick`` and
+    ``finish_segments``, the lines zeroed where not ok."""
+    _, h, w = imgs01.shape
+    planes = corner_planes(imgs01, s_dim)
+    geom = walk_geom(theta_idx, rho_idx, rho_offset, n_steps, h, w, s_dim)
+    v = kernels.walk_pick(planes, geom.r.contiguous(), geom.xmaj)
+    lines, ok = finish_segments(v, geom, peak_ok, min_len, gaps, h, w)
+    return torch.where(ok[..., None], lines, 0), ok
+
+
+def walk_segments(imgs01: torch.Tensor, theta_idx: torch.Tensor,
+                  rho_idx: torch.Tensor, peak_ok: torch.Tensor,
+                  gaps: torch.Tensor, *, rho_offset: int, n_steps: int,
+                  s_dim: int, min_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The segment walk of a chunk's [B, K] peaks over its [B, H, W] 0/1
+    u8 frames, with each frame's max_gap ``gaps`` ([B] f32): (lines
+    [B, K, 4] int32, 0 where not ok; ok [B, K] bool).
+
+    On the card four launches: ``kernels.corner_planes``, ``walk_geom``,
+    ``walk_pick`` and ``walk_finish``; elsewhere ``walk_segments_plain``.
+    """
+    if imgs01.device.type != "cuda":
+        return walk_segments_plain(
+            imgs01, theta_idx, rho_idx, peak_ok, gaps, rho_offset=rho_offset,
+            n_steps=n_steps, s_dim=s_dim, min_len=min_len)
+    _, h, w = imgs01.shape
+    planes = kernels.corner_planes(imgs01, s_dim)
+    r, xmaj = kernels.walk_geom(theta_idx, rho_idx, rho_offset, n_steps, h,
+                                w, s_dim)
+    v = kernels.walk_pick(planes, r, xmaj)
+    return kernels.walk_finish(v, theta_idx, rho_idx, peak_ok, gaps,
+                               rho_offset, n_steps, h, w, min_len)
+
+
 def hough_lines_batch(dst: torch.Tensor, max_gap: torch.Tensor, *,
                       threshold: int, min_len: int, max_points: int = 8192,
                       max_peaks: int = 64) -> HoughResult:
@@ -333,11 +377,10 @@ def hough_lines_batch(dst: torch.Tensor, max_gap: torch.Tensor, *,
         votes = kernels.hough_vote(xs, ys, valid, n_rho, rho_offset)
         th_i, rh_i, pok = find_peaks(votes, threshold, max_peaks)
         pok = pok & ~overflow[:, None] & (npix > 0)[:, None]
-        planes = corner_planes(imgs, s_dim)
-        geom = walk_geom(th_i, rh_i, rho_offset, n_steps, h, w, s_dim)
-        v = kernels.walk_pick(planes, geom.r.contiguous(), geom.xmaj)
-        lines, ok = finish_segments(v, geom, pok, min_len, gaps, h, w)
-        out_lines.append(torch.where(ok[..., None], lines, 0))
+        lines, ok = walk_segments(imgs, th_i, rh_i, pok, gaps,
+                                  rho_offset=rho_offset, n_steps=n_steps,
+                                  s_dim=s_dim, min_len=min_len)
+        out_lines.append(lines)
         out_valid.append(ok)
         out_npix.append(npix)
         out_over.append(overflow)

@@ -2,9 +2,12 @@
 against their plain versions: odd sizes, empty and degenerate point lists,
 the largest n_rho, rows outside the plane, crafted vote planes (ties,
 borders, the crowd guard's edges) and storage that is not 16-byte aligned;
-and the stream axis of ``window_diff``: one or several streams, blocks
+the stream axis of ``window_diff``: one or several streams, blocks
 shorter than the history, per-stream timers, and histories that are views
-of the previous block's frames (streams T frames apart, not n-1).
+of the previous block's frames (streams T frames apart, not n-1); and the
+segment walk's ``corner_planes``, ``walk_geom`` and ``walk_finish``: frames
+with drawn segments and their peaks, crafted axis and diagonal walks in
+both directions, empty and dense frames, S from 128 to 4096 and ragged.
 
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py`` run the same lists
 on a card; the inputs are made from a seed with numpy.
@@ -12,10 +15,13 @@ on a card; the inputs are made from a seed with numpy.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from .hough import _peak_cuts
+from .f32 import trig_tables
+from .hough import _peak_cuts, _round_up
 from .kernels import MAX_VOTE_RHO
 
 # (id, T, n, n_rho, fill, offset): fill is how the points are made --
@@ -212,3 +218,115 @@ def pick_case(case, dev, seed: int):
     xmaj = rng.random((t, k)) < 0.5
     return (_place(planes, dev, 0), _place(r, dev, offset),
             _place(xmaj, dev, 0))
+
+
+# (id, T, K, H, W, S, fill, offset): fill "lines" draws 1-3 segments a frame
+# over sparse noise and puts peaks on them (and beside them, and at
+# random), "crafted" walks at 0, 45, 90 and 135 degrees in both directions,
+# rho at both ends, gaps of 0 to 4 pixels, max_gap 0 and 1e7 and min_len 1,
+# "empty" frames with no pixel, "dense" frames half full; a quarter of the
+# peaks is not ok; the tensors start ``offset`` bytes into their storage.
+WALK_CASES = [
+    ("main", 8, 64, 540, 960, 1024, "lines", 0),
+    ("t1", 1, 64, 540, 960, 1024, "lines", 0),
+    ("t3_k5", 3, 5, 37, 150, 256, "lines", 0),
+    ("s128", 2, 16, 100, 127, 128, "lines", 0),
+    ("s200", 2, 16, 150, 199, 200, "lines", 0),
+    ("s131", 2, 8, 100, 130, 131, "lines", 0),   # S % 4 != 0: byte paths
+    ("portrait", 4, 32, 300, 120, 384, "lines", 0),
+    ("crafted", 2, 64, 37, 150, 256, "crafted", 0),
+    ("crafted_portrait", 3, 64, 150, 37, 256, "crafted", 0),
+    ("empty", 2, 16, 37, 150, 256, "empty", 0),
+    ("dense", 5, 16, 64, 96, 128, "dense", 0),
+    ("uhd", 1, 16, 2160, 3840, 3968, "lines", 0),
+    ("s4096", 1, 8, 300, 4095, 4096, "lines", 0),
+    ("offset8", 3, 20, 37, 150, 256, "lines", 8),
+]
+
+
+class WalkCase(NamedTuple):
+    """The inputs of one of WALK_CASES, as ``hough.walk_segments`` takes
+    them (``n_rho`` is the vote plane's width the peaks come from)."""
+    imgs01: torch.Tensor      # [T, H, W] 0/1 u8
+    theta_idx: torch.Tensor   # [T, K] i64
+    rho_idx: torch.Tensor     # [T, K] i64
+    peak_ok: torch.Tensor     # [T, K] bool
+    gaps: torch.Tensor        # [T] f32
+    rho_offset: int
+    n_steps: int
+    s_dim: int
+    min_len: int
+    n_rho: int
+
+
+def _segment(img: np.ndarray, p0, p1, skip=()) -> None:
+    """Set the pixels of the segment p0-p1 (rounded samples), but the
+    samples whose index is in ``skip`` (indices past the end skip none)."""
+    n = int(max(abs(p1[0] - p0[0]), abs(p1[1] - p0[1]))) + 1
+    xs = np.rint(np.linspace(p0[0], p1[0], n)).astype(int)
+    ys = np.rint(np.linspace(p0[1], p1[1], n)).astype(int)
+    keep = np.ones(n, bool)
+    keep[[i for i in skip if i < n]] = False
+    h, w = img.shape
+    inside = keep & (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[inside], xs[inside]] = 1
+
+
+def _peak_of(p0, p1, rho_offset: int):
+    """(theta index, rho index) of the line through p0 and p1."""
+    cos_t, sin_t = trig_tables("cpu")
+    th = int(np.rint(np.degrees(np.arctan2(p1[0] - p0[0],
+                                           p0[1] - p1[1])))) % 180
+    rho = p0[0] * float(cos_t[th]) + p0[1] * float(sin_t[th])
+    return th, int(np.rint(rho)) + rho_offset
+
+
+def walk_case(case, dev, seed: int) -> WalkCase:
+    """The inputs of one of WALK_CASES, made from ``seed`` with numpy."""
+    _, t, k, h, w, s, fill, offset = case
+    rng = np.random.default_rng([seed, t, k, h, w, s])
+    off = w + h
+    n_rho = _round_up(2 * (w + h) + 1, 128)
+    th = rng.integers(0, 180, (t, k))
+    rh = rng.integers(0, n_rho, (t, k))
+    imgs = np.zeros((t, h, w), np.uint8)
+    gaps = rng.choice(np.array([0.0, 1.5, 3.0, 10.0, 1e7], np.float32), t)
+    min_len = 10
+    if fill == "dense":
+        imgs[:] = rng.random(imgs.shape) < 0.5
+    elif fill == "lines":
+        imgs[:] = rng.random(imgs.shape) < 0.002
+        for f in range(t):
+            for i in range(int(rng.integers(1, 4))):
+                p0 = (rng.uniform(0, w - 1), rng.uniform(0, h - 1))
+                p1 = (rng.uniform(0, w - 1), rng.uniform(0, h - 1))
+                _segment(imgs[f], p0, p1,
+                         skip=rng.integers(0, 400, int(rng.integers(0, 6))))
+                pt, pr = _peak_of(p0, p1, off)
+                for j, (dt, dr) in enumerate([(0, 0), (0, 1), (1, 0),
+                                              (0, -1), (-1, 0)]):
+                    if 5 * i + j < k:
+                        th[f, 5 * i + j] = (pt + dt) % 180
+                        rh[f, 5 * i + j] = np.clip(pr + dr, 0, n_rho - 1)
+    elif fill == "crafted":
+        min_len = 1
+        gaps[:] = np.resize(np.array([0.0, 1e7, 2.0], np.float32), t)
+        cx, cy = (w - 1) / 2, (h - 1) / 2
+        ends = [((0, cy), (w - 1, cy)), ((cx, 0), (cx, h - 1)),
+                ((0, 0), (h - 1, h - 1)), ((h - 1, 0), (0, h - 1)),
+                ((w - 1, h - 1), (w - h, 0)), ((w - 1, 0), (w - h, h - 1))]
+        peaks = [(a, r) for a in (0, 45, 90, 135)
+                 for r in (0, 1, n_rho - 2, n_rho - 1, off, off + 3)]
+        for f in range(t):
+            for i, (p0, p1) in enumerate(ends):
+                _segment(imgs[f], p0, p1, skip=range(5, 5 + (i + f) % 5))
+            crafted = [_peak_of(p0, p1, off) for p0, p1 in ends] + peaks
+            th[f, :len(crafted)] = [a for a, _ in crafted][:k]
+            rh[f, :len(crafted)] = [r for _, r in crafted][:k]
+    elif fill != "empty":
+        raise ValueError(f"unknown walk fill {fill!r}")
+    peak_ok = rng.random((t, k)) < 0.75
+    return WalkCase(_place(imgs, dev, offset), _place(th, dev, offset),
+                    _place(rh, dev, offset), _place(peak_ok, dev, offset),
+                    _place(gaps, dev, offset), off,
+                    _round_up(max(h, w) + 4, 128), s, min_len, n_rho)

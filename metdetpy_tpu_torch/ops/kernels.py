@@ -1,8 +1,10 @@
-"""The five hand-written CUDA kernels of the M3 path, their wrappers and
+"""The eight hand-written CUDA kernels of the M3 path, their wrappers and
 their plain PyTorch versions.
 
 Counterpart of ``metdetpy_tpu/ops/pallas_kernels.py``, and of the plain
-peak find of ``metdetpy_tpu/ops/hough.py`` (``peak_ladder``). Each wrapper:
+peak find and segment walk of ``metdetpy_tpu/ops/hough.py``
+(``peak_ladder``; ``corner_planes``, ``walk_geom``, ``walk_finish``). Each
+wrapper:
 
 - takes the plain version for CPU tensors, and only for them;
 - launches its CUDA kernel for CUDA tensors, or raises (there is no
@@ -58,6 +60,13 @@ SOURCES = {
                   [_P, _P, _P, _P, _I, _I, _I, _P]),
     "peak_ladder": ("peak_ladder.cu", "mdt_peak_ladder",
                     [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
+    "corner_planes": ("walk_segments.cu", "mdt_corner_planes",
+                      [_P, _P, _I, _I, _I, _I, _P]),
+    "walk_geom": ("walk_segments.cu", "mdt_walk_geom",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "walk_finish": ("walk_segments.cu", "mdt_walk_finish",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P]),
 }
 # every C entry point bound: the kernels, and the empty kernel on
 # walk_pick's grid that walk_pick_floor launches
@@ -545,3 +554,129 @@ def peak_ladder(votes: torch.Tensor, threshold: int,
             int(threshold), is_peak.data_ptr(), count.data_ptr(), t,
             n_theta, n_rho)
     return is_peak, count
+
+
+# -- 6. segment walk: corner planes, walk geometry, finish --------------------
+#
+# The glue around walk_pick (csrc/walk_segments.cu), which the JAX package
+# leaves to XLA (metdetpy_tpu/ops/hough.py::pack_corners :240, _walk_geom
+# :354, _finish_segments :406: no Pallas kernel) and plain PyTorch ran as ~1,740
+# elementwise and scan records a 64-frame block. Bound by bytes at 960x540,
+# T = 8, K = 64, S = 1024: corner_planes 4.15 MB in and 16.8 MB out
+# (0.0062 ms at 3.35 TB/s); walk_geom the [T, K, S] i32 rows out (2.10 MB,
+# 0.0006 ms); walk_finish the picks of the in-range columns of ok peaks in
+# (at most 2.10 MB) and 8 KB of lines out. corner_planes tiles both planes
+# through shared memory (a 65 x 65 input tile, both output tiles written
+# row by row, 4 bytes a thread); walk_geom and walk_finish take one block
+# per (frame, peak), and walk_finish runs finish_segments' two running
+# maxima as block-wide max-scans over the walk order (column S-1-j where the
+# walk runs backwards) and the longest run as a block argmax, first among
+# equals; a peak that is not ok writes zeros at once. The per-peak geometry
+# is one device function of the two kernels, written with round-to-nearest
+# intrinsics and f32.fma_f32's two roundings, so every output equals the
+# plain version bit for bit.
+
+# most walk columns walk_finish takes (32 steps a thread of 1024)
+WALK_MAX_S = 32 * 1024
+
+
+def corner_planes_plain(imgs01: torch.Tensor, s_dim: int) -> torch.Tensor:
+    """Spec: ``hough.corner_planes``."""
+    from . import hough  # hough imports this module
+    return hough.corner_planes(imgs01, s_dim)
+
+
+def corner_planes(imgs01: torch.Tensor, s_dim: int) -> torch.Tensor:
+    """The packed corner planes of [T, H, W] 0/1 u8 frames: [T, 2, S, S]
+    u8, plane 0 the x-major walks' (rows y), plane 1 the y-major walks'
+    (rows x, bits 1 and 2 swapped), 0 beyond the frame; H, W < S."""
+    if not _on_card(imgs01, "corner_planes"):
+        return corner_planes_plain(imgs01, s_dim)
+    t, h, w = imgs01.shape
+    dev = imgs01.device
+    _check("corner_planes", imgs01, torch.uint8, dev)
+    if not 1 <= min(h, w) <= max(h, w) < s_dim or t > 65535:
+        raise ValueError(f"corner_planes: frames {tuple(imgs01.shape)} and "
+                         f"S={s_dim}: need 1 <= H, W < S and T <= 65535")
+    planes = torch.empty((t, 2, s_dim, s_dim), dtype=torch.uint8, device=dev)
+    _launch("corner_planes", imgs01, imgs01.data_ptr(), planes.data_ptr(), t,
+            h, w, s_dim)
+    return planes
+
+
+def walk_geom_plain(theta_idx: torch.Tensor, rho_idx: torch.Tensor,
+                    rho_offset: int, n_steps: int, h: int, w: int,
+                    s_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spec: ``hough.walk_geom``'s ``r`` and ``xmaj``."""
+    from . import hough  # hough imports this module
+    g = hough.walk_geom(theta_idx, rho_idx, rho_offset, n_steps, h, w, s_dim)
+    return g.r.contiguous(), g.xmaj
+
+
+def walk_geom(theta_idx: torch.Tensor, rho_idx: torch.Tensor,
+              rho_offset: int, n_steps: int, h: int, w: int, s_dim: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``walk_pick``'s inputs from [T, K] i64 peaks (theta in [0, 180)):
+    the plane row of each walk column, r [T, K, S] i32, and xmaj [T, K]
+    bool. ``n_steps`` bounds the walk, which r and xmaj do not depend
+    on."""
+    if not _on_card(theta_idx, "walk_geom"):
+        return walk_geom_plain(theta_idx, rho_idx, rho_offset, n_steps, h, w,
+                               s_dim)
+    t, k = theta_idx.shape
+    dev = theta_idx.device
+    _check("walk_geom", theta_idx, torch.int64, dev)
+    _check("walk_geom", rho_idx, torch.int64, dev, (t, k))
+    if s_dim < 1:
+        raise ValueError(f"walk_geom: S={s_dim}")
+    cos_t, sin_t = trig_tables(dev)
+    r = torch.empty((t, k, s_dim), dtype=torch.int32, device=dev)
+    xmaj = torch.empty((t, k), dtype=torch.bool, device=dev)
+    _launch("walk_geom", theta_idx, theta_idx.data_ptr(), rho_idx.data_ptr(),
+            cos_t.data_ptr(), sin_t.data_ptr(), r.data_ptr(),
+            xmaj.data_ptr(), t, k, s_dim, rho_offset, h, w)
+    return r, xmaj
+
+
+def walk_finish_plain(v: torch.Tensor, theta_idx: torch.Tensor,
+                      rho_idx: torch.Tensor, peak_ok: torch.Tensor,
+                      max_gap: torch.Tensor, rho_offset: int, n_steps: int,
+                      h: int, w: int, min_len: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spec: ``hough.finish_segments`` on ``hough.walk_geom``, the lines
+    zeroed where not ok (as ``hough_lines_batch`` does)."""
+    from . import hough  # hough imports this module
+    g = hough.walk_geom(theta_idx, rho_idx, rho_offset, n_steps, h, w,
+                        v.shape[-1])
+    lines, ok = hough.finish_segments(v, g, peak_ok, min_len, max_gap, h, w)
+    return torch.where(ok[..., None], lines, 0), ok
+
+
+def walk_finish(v: torch.Tensor, theta_idx: torch.Tensor,
+                rho_idx: torch.Tensor, peak_ok: torch.Tensor,
+                max_gap: torch.Tensor, rho_offset: int, n_steps: int, h: int,
+                w: int, min_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The segment of each peak from ``walk_pick``'s picks v [T, K, S] i32:
+    the bilinear acceptance, the longest run with gaps up to the frame's
+    ``max_gap`` ([T] f32) and its endpoints. Returns (lines [T, K, 4] i32,
+    0 where not ok; ok [T, K] bool)."""
+    if not _on_card(v, "walk_finish"):
+        return walk_finish_plain(v, theta_idx, rho_idx, peak_ok, max_gap,
+                                 rho_offset, n_steps, h, w, min_len)
+    t, k, s = v.shape
+    dev = v.device
+    _check("walk_finish", v, torch.int32, dev)
+    _check("walk_finish", theta_idx, torch.int64, dev, (t, k))
+    _check("walk_finish", rho_idx, torch.int64, dev, (t, k))
+    _check("walk_finish", peak_ok, torch.bool, dev, (t, k))
+    _check("walk_finish", max_gap, torch.float32, dev, (t,))
+    if not 1 <= s <= WALK_MAX_S:
+        raise ValueError(f"walk_finish: S={s} outside [1, {WALK_MAX_S}]")
+    cos_t, sin_t = trig_tables(dev)
+    lines = torch.empty((t, k, 4), dtype=torch.int32, device=dev)
+    ok = torch.empty((t, k), dtype=torch.bool, device=dev)
+    _launch("walk_finish", v, v.data_ptr(), theta_idx.data_ptr(),
+            rho_idx.data_ptr(), peak_ok.data_ptr(), max_gap.data_ptr(),
+            cos_t.data_ptr(), sin_t.data_ptr(), lines.data_ptr(),
+            ok.data_ptr(), t, k, s, rho_offset, n_steps, h, w, min_len)
+    return lines, ok

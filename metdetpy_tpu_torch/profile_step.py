@@ -5,7 +5,8 @@ card's own device time, on a quiet and on an active sky.
         [--device cuda|cpu] [--h 540 --w 960 --t 64] [--quick]
 
 Counterpart of the JAX side's ``tools/profile_block.py`` (``block``: the
-quiet-sky step and four of its stages), ``tools/profile_dense.py``
+quiet-sky step and four of its stages, and the step's segment walk on the
+block's own peaks), ``tools/profile_dense.py``
 (``dense``: ``hough_lines_batch`` on a clustered-salt binarized block and
 its stages: compaction, vote, peak find, segment walk) and
 ``tools/profile_worstcase_split.py`` (``split``: the active-sky step
@@ -32,9 +33,10 @@ JSON line, beside the card's name and power limit (``"device"``):
   included), so every call and replay computes the same block phase: the
   line states its ``timer0`` and the frames whose EMA updates.
 - ``launches``: device records (kernels, copies, fills) of one eager call,
-  from the profiler; ``kernel_launches`` the five CUDA kernels' own.
+  from the profiler (the ``step`` stage's: the records of the step's
+  graph); ``kernel_launches`` the CUDA kernels' own.
 
-Derived lines: ``rest`` (``block``: the step less its four timed stages)
+Derived lines: ``rest`` (``block``: the step less its five timed stages)
 and ``hough`` (``split``: the step less ``chain_only``). On ``--device
 cpu`` only ``slope_ms`` is taken (the CPU's time); the device readings are
 ``null`` and the line says "not measured". ``cuda``, the default, raises
@@ -163,8 +165,9 @@ def points_of(idx: torch.Tensor, valid: torch.Tensor, w: int):
 
 def walk_chunks(imgs01, theta_idx, rho_idx, peak_ok, gaps, *, min_len):
     """The segment walk of every frame's peaks, in hough_lines_batch's
-    frame chunks: corner planes, walk geometry, ``kernels.walk_pick`` and
-    ``finish_segments``. Returns (lines, ok)."""
+    frame chunks, as the step runs it: ``hough.walk_segments`` (on the card
+    ``kernels.corner_planes``, ``walk_geom``, ``walk_pick`` and
+    ``walk_finish``). Returns (lines, 0 where not ok; ok)."""
     t, h, w = imgs01.shape
     _, off, n_steps, s_dim = _hough_sizes(h, w)
     fc = hough.FRAME_CHUNK
@@ -173,22 +176,18 @@ def walk_chunks(imgs01, theta_idx, rho_idx, peak_ok, gaps, *, min_len):
     lines, oks = [], []
     for a in range(0, t, fc):
         sl = slice(a, a + fc)
-        planes = hough.corner_planes(imgs01[sl], s_dim)
-        geom = hough.walk_geom(theta_idx[sl], rho_idx[sl], off, n_steps, h,
-                               w, s_dim)
-        v = kernels.walk_pick(planes, geom.r.contiguous(), geom.xmaj)
-        seg, ok = hough.finish_segments(v, geom, peak_ok[sl], min_len,
-                                        gaps[sl], h, w)
+        seg, ok = hough.walk_segments(
+            imgs01[sl], theta_idx[sl], rho_idx[sl], peak_ok[sl], gaps[sl],
+            rho_offset=off, n_steps=n_steps, s_dim=s_dim, min_len=min_len)
         lines.append(seg)
         oks.append(ok)
     return torch.cat(lines), torch.cat(oks)
 
 
-def hough_by_stages(dst, max_gap, *, threshold, min_len, max_points=8192,
-                    max_peaks=64) -> hough.HoughResult:
-    """``hough_lines_batch`` as the dense tool splits it: compaction, vote
-    and peak find over the whole block at once, then the walk in frame
-    chunks. Equal to ``hough_lines_batch``."""
+def hough_peaks(dst, *, threshold, max_points=8192, max_peaks=64):
+    """A binarized block's 0/1 frames and peaks as the dense tool finds
+    them, over the whole block at once: (imgs01, theta_idx, rho_idx, ok,
+    npix, overflow)."""
     t, h, w = dst.shape
     n_rho, off, _, _ = _hough_sizes(h, w)
     imgs01 = (dst > 0).to(torch.uint8)
@@ -201,9 +200,19 @@ def hough_by_stages(dst, max_gap, *, threshold, min_len, max_points=8192,
     votes = kernels.hough_vote(xs, ys, valid, n_rho, off)
     th, rh, ok = hough.find_peaks(votes, threshold, max_peaks)
     ok = ok & ~overflow[:, None] & (npix > 0)[:, None]
+    return imgs01, th, rh, ok, npix, overflow
+
+
+def hough_by_stages(dst, max_gap, *, threshold, min_len, max_points=8192,
+                    max_peaks=64) -> hough.HoughResult:
+    """``hough_lines_batch`` as the dense tool splits it: compaction, vote
+    and peak find over the whole block at once, then the walk in frame
+    chunks. Equal to ``hough_lines_batch``."""
+    imgs01, th, rh, ok, npix, overflow = hough_peaks(
+        dst, threshold=threshold, max_points=max_points,
+        max_peaks=max_peaks)
     lines, ok = walk_chunks(imgs01, th, rh, ok, max_gap, min_len=min_len)
-    return hough.HoughResult(torch.where(ok[..., None], lines, 0), ok, npix,
-                             overflow)
+    return hough.HoughResult(lines, ok, npix, overflow)
 
 
 # -- the stages of each tool -------------------------------------------------
@@ -241,12 +250,25 @@ def _step_stage(name, label, fn, det, kw, blocks, chain=None) -> Stage:
 
 def block_stages(dev, h: int, w: int, t: int) -> list:
     """``profile_block.py``: the quiet step, window_diff,
-    median/binarize/close, the dy rolling sum and the sub-ROI noise std."""
+    median/binarize/close, the dy rolling sum and the sub-ROI noise std;
+    and the step's segment walk on each block's own binarized frames and
+    peaks (the preset's max_gap for every frame)."""
     blocks = _blocks(quiet_frames(5 * t, h, w), t, dev)
     det, kw = _steady_detector(bench._preset("m3det_normal"), blocks, dev)
     n = kw["n"]
     r1, c1, r2, c2 = kw["roi"]
     timer0 = 10 * n  # steady state: warm-up lengths saturated
+    carries = (det._gray_hist.clone(), det._sub_hist.clone(),
+               det._dy_hist.clone(), det._ema.clone())
+    gaps = torch.full((t,), kw["max_gap"], dtype=torch.float32, device=dev)
+    walks = []
+    for b in blocks:
+        dst = m3det._m3_block_step(*carries, b, det._timer_dev.clone(),
+                                   **kw)[1]
+        walks.append((*hough_peaks(
+            dst, threshold=kw["hough_threshold"],
+            max_points=kw["max_points"], max_peaks=kw["max_peaks"])[:4],
+            gaps))
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.uint8, device=dev)
@@ -273,6 +295,10 @@ def block_stages(dev, h: int, w: int, t: int) -> list:
               lambda hh, f: windows.window_noise_std(
                   hh, f[:, r1:r2, c1:c2], n, timer0),
               [(sub_hist, b) for b in blocks], info=at),
+        Stage("segment_walk", "segment walk K=64 (incl pack)",
+              lambda im, a, b, o, g: walk_chunks(im, a, b, o, g,
+                                                 min_len=kw["min_len"]),
+              walks),
     ]
 
 
@@ -560,9 +586,11 @@ def measure(tool: str, dev, h: int, w: int, t: int,
         records.append(rec)
         if on_card:
             torch.cuda.empty_cache()
-    derived = {"block": ("rest", "rest (hough+EMA+pack+dispatch)", "step",
+    derived = {"block": ("rest", "rest (hough less the walk, EMA, pack, "
+                         "dispatch)", "step",
                          ("window_diff", "median_binarize_close",
-                          "rolling_sum_u32", "window_noise_std")),
+                          "rolling_sum_u32", "window_noise_std",
+                          "segment_walk")),
                "split": ("hough", "hough only (FULL less chain-only)",
                          "step", ("chain_only",))}.get(tool)
     if derived:

@@ -17,8 +17,9 @@ import torch
 from metdetpy_tpu_torch.api import detect_video
 from metdetpy_tpu_torch.ops import hough, kernels
 from metdetpy_tpu_torch.ops.kernel_cases import (
-    PEAK_CASES, PEAK_MAX, PICK_CASES, VOTE_CASES, WINDOW_DIFF_STREAM_CASES,
-    peak_case, pick_case, vote_case, window_diff_stream_case)
+    PEAK_CASES, PEAK_MAX, PICK_CASES, VOTE_CASES, WALK_CASES,
+    WINDOW_DIFF_STREAM_CASES, peak_case, pick_case, vote_case, walk_case,
+    window_diff_stream_case)
 from metdetpy_tpu_torch.structs import MainDetectCfg
 from metdetpy_tpu_torch.synth import SynthMeteor, generate_meteor_video
 from metdetpy_tpu_torch.utils import relative2abs_path
@@ -44,11 +45,13 @@ def _card_cases(dev):
     h, w = 37, 150
     n_rho = hough._round_up(2 * (w + h) + 1, 128)
     s = hough._round_up(max(h, w) + 1, 128)
-    planes = hough.corner_planes(
-        t((rng.random((3, h, w)) < 0.1).astype(np.uint8)), s)
-    geom = hough.walk_geom(t(rng.integers(0, 180, (3, 16))),
-                           t(rng.integers(0, n_rho, (3, 16))), w + h,
-                           hough._round_up(max(h, w) + 4, 128), h, w, s)
+    n_steps = hough._round_up(max(h, w) + 4, 128)
+    imgs = t((rng.random((3, h, w)) < 0.1).astype(np.uint8))
+    planes = hough.corner_planes(imgs, s)
+    th, rh = (t(rng.integers(0, 180, (3, 16))),
+              t(rng.integers(0, n_rho, (3, 16))))
+    geom = hough.walk_geom(th, rh, w + h, n_steps, h, w, s)
+    v = kernels.walk_pick_plain(planes, geom.r.contiguous(), geom.xmaj)
     return {
         "window_diff": (
             (t(rng.integers(0, 256, (4, h, w), dtype=np.uint8)),
@@ -73,6 +76,13 @@ def _card_cases(dev):
                         ).astype(np.int32)),
              10, hough._peak_cuts(10, dev)),
             kernels.peak_ladder_plain),
+        "corner_planes": ((imgs, s), kernels.corner_planes_plain),
+        "walk_geom": ((th, rh, w + h, n_steps, h, w, s),
+                      kernels.walk_geom_plain),
+        "walk_finish": ((v, th, rh, t(rng.random((3, 16)) < 0.8),
+                         t(np.array([0.0, 3.0, 1e7], np.float32)), w + h,
+                         n_steps, h, w, 1),
+                        kernels.walk_finish_plain),
     }
 
 
@@ -289,6 +299,79 @@ def test_find_peaks_on_card_makes_no_rung_tensor(cuda_device):
     hough.find_peaks(votes, 10, PEAK_MAX)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before < 64 * 2 ** 20
+
+
+# WALK_CASES (ops/kernel_cases.py): drawn segments and their peaks, crafted
+# axis and diagonal walks both ways with rho at both ends, empty and dense
+# frames, T = 1..8, S from 128 to 4096 and 200, portrait frames, peaks not
+# ok, max_gap 0 and 1e7, inputs 8 bytes into their storage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+def test_walk_kernels_on_card_ragged(cuda_device, case):
+    """corner_planes, walk_geom and walk_finish each equal their plain
+    versions bit for bit, one launch each."""
+    c = walk_case(case, cuda_device, SEED)
+    _, h, w = c.imgs01.shape
+    geom = (c.rho_offset, c.n_steps, h, w)
+    kernels.reset_launch_counts()
+    planes = kernels.corner_planes(c.imgs01, c.s_dim)
+    r, xmaj = kernels.walk_geom(c.theta_idx, c.rho_idx, *geom, c.s_dim)
+    v = kernels.walk_pick(planes, r, xmaj)
+    lines, ok = kernels.walk_finish(v, c.theta_idx, c.rho_idx, c.peak_ok,
+                                    c.gaps, *geom, c.min_len)
+    torch.cuda.synchronize()
+    assert {name: kernels.LAUNCHES[name] for name in (
+        "corner_planes", "walk_geom", "walk_pick", "walk_finish")} == {
+        "corner_planes": 1, "walk_geom": 1, "walk_pick": 1, "walk_finish": 1}
+    assert torch.equal(planes, kernels.corner_planes_plain(c.imgs01,
+                                                           c.s_dim))
+    want_r, want_x = kernels.walk_geom_plain(c.theta_idx, c.rho_idx, *geom,
+                                             c.s_dim)
+    assert torch.equal(r, want_r) and torch.equal(xmaj, want_x)
+    want_lines, want_ok = kernels.walk_finish_plain(
+        v, c.theta_idx, c.rho_idx, c.peak_ok, c.gaps, *geom, c.min_len)
+    assert torch.equal(ok, want_ok) and torch.equal(lines, want_lines)
+    if case[6] in ("lines", "crafted"):
+        assert bool(ok.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+def test_walk_segments_on_card_equals_cpu(cuda_device, case):
+    """hough.walk_segments on the card (four launches) equals its plain
+    composition on the CPU."""
+    got = walk_case(case, cuda_device, SEED)
+    want = walk_case(case, "cpu", SEED)
+    kw = dict(rho_offset=got.rho_offset, n_steps=got.n_steps,
+              s_dim=got.s_dim, min_len=got.min_len)
+    lines, ok = hough.walk_segments(*got[:5], **kw)
+    want_lines, want_ok = hough.walk_segments(*want[:5], **kw)
+    assert torch.equal(ok.cpu(), want_ok)
+    assert torch.equal(lines.cpu(), want_lines)
+
+
+@pytest.mark.cuda
+def test_step_replay_launches_the_walk_kernels(cuda_device):
+    """A replay of the main path's step graph (960x540 analysed, 64-frame
+    blocks) launches each segment-walk kernel and walk_pick 8 times, once
+    a chunk of 8 frames."""
+    from metdetpy_tpu_torch import bench
+    from metdetpy_tpu_torch.detectors import step_graph
+    cfg = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json"))
+    det = bench._m3_detector(cfg, 540, 960, "cuda")
+    block = torch.zeros((64, 540, 960), dtype=torch.uint8, device="cuda")
+    det.process_block_async(block)            # the capture
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    det.process_block_async(block)            # one replay
+    torch.cuda.synchronize()
+    want = {"corner_planes": 8, "walk_geom": 8, "walk_pick": 8,
+            "walk_finish": 8}
+    assert {k: step_graph.CAPTURES[-1]["launches"][k] for k in want} == want
+    assert {k: kernels.LAUNCHES[k] for k in want} == want
 
 
 @pytest.mark.cuda
@@ -833,6 +916,35 @@ def test_step_graph_on_card_equals_cpu_step(cuda_device, n):
                         dets["cpu"]._ema.tensors()):
             assert torch.equal(a.cpu(), e)
     assert len(step_graph.CAPTURES) == n_caps + 1
+
+
+@pytest.mark.cuda
+def test_step_graph_captures_with_the_collector_off(cuda_device,
+                                                    monkeypatch):
+    """No automatic collection runs inside a capture (one could free a
+    dropped detector's graph there, which fails the capture): the
+    collector is off while the step is captured and on again after."""
+    import gc
+    from metdetpy_tpu_torch.detectors import m3det, step_graph
+    from metdetpy_tpu_torch.log import BaseMetLog
+    seen = []
+    pick = kernels.walk_pick
+
+    def spy(*args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return pick(*args)
+
+    monkeypatch.setattr(kernels, "walk_pick", spy)
+    cfg = MainDetectCfg.from_json_file(
+        relative2abs_path("./config/m3det_normal.json")).detector.cfg
+    step_graph.clear_idle()
+    det = m3det.M3Detector(0.4, 25.0, np.ones((40, 72), np.uint8), 4, cfg,
+                           BaseMetLog(), max_points=1024, device="cuda")
+    assert gc.isenabled()
+    det.process_block_async(np.zeros((8, 40, 72), np.uint8))
+    torch.cuda.synchronize()
+    assert seen and not any(seen) and gc.isenabled()
 
 
 @pytest.mark.cuda

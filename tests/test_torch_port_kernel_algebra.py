@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from metdetpy_tpu_torch.ops import filters, kernels
+from metdetpy_tpu_torch.ops import f32, filters, kernels
 
 torch.set_num_threads(2)
 
@@ -665,6 +665,404 @@ def test_ladder_model_equals_plain(nrng, t, n_theta, n_rho, vec):
     assert want_count.sum() == want_mask.sum() > 0
 
 
+# -- (i) walk_segments.cu: corner tiles, peak geometry, walk-order scans -----
+
+F32 = np.float32
+K_NEG = -(10 ** 6)
+INT_MIN, INT_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+
+
+def corner_planes_model(imgs, s, vec=True, tile=64, threads=256):
+    """corner_planes.cu block by block: a (tile+1)^2 shared tile of the
+    frame (0 outside it), thread x's 4 columns (x % 16) of rows x // 16,
+    x // 16 + 16, ...; plane 0's word from tile[i][j..], plane 1's (the
+    transposed plane, bits 1 and 2 swapped) from tile[j..][i]; every byte
+    of both planes written once, as words where S % 4 == 0."""
+    t, h, w = imgs.shape
+    planes = np.full((t, 2, s, s), 0xEE, np.uint8)       # 0xEE: unwritten
+    n_tiles = -(-s // tile)
+    lane = np.arange(threads)
+    g = (lane & 15) * 4
+    for b in range(t):
+        pad = np.zeros((h + 2, w + 2), np.uint8)
+        pad[1:-1, 1:-1] = imgs[b] != 0
+        for by in range(n_tiles):
+            for bx in range(n_tiles):
+                y0, x0 = by * tile, bx * tile
+                tl = np.zeros((tile + 1, tile + 1), np.uint8)
+                ys = np.arange(y0 - 1, y0 + tile)
+                xs = np.arange(x0 - 1, x0 + tile)
+                iy = (ys >= 0) & (ys < h)
+                ix = (xs >= 0) & (xs < w)
+                tl[np.ix_(iy, ix)] = pad[1:-1, 1:-1][np.ix_(ys[iy], xs[ix])]
+                for i0 in range(0, tile, threads // 16):
+                    i = i0 + (lane >> 4)
+                    for q in range(4):
+                        j = g + q
+                        a = (tl[i, j] | tl[i, j + 1] << 1 | tl[i + 1, j] << 2
+                             | tl[i + 1, j + 1] << 3)
+                        tr = (tl[j, i] | tl[j + 1, i] << 1 | tl[j, i + 1] << 2
+                              | tl[j + 1, i + 1] << 3)
+                        for plane, row, col, val in ((0, y0 + i, x0 + j, a),
+                                                     (1, x0 + i, y0 + j, tr)):
+                            # the vector path stores a word where its first
+                            # column is inside; bytes alone check each one
+                            first = x0 + g if plane == 0 else y0 + g
+                            inside = (row < s) & ((first < s) if vec
+                                                  else (col < s))
+                            assert (planes[b, plane, row[inside],
+                                           col[inside]] == 0xEE).all()
+                            planes[b, plane, row[inside], col[inside]] = \
+                                val[inside]
+    return planes
+
+
+def fma_f32_np(a, b, c):
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(F32)
+
+
+def peak_geom_model(theta_idx, rho_idx, rho_offset, h, w):
+    """walk_segments.cu's peak_geom, each f32 operation rounded alone and
+    fma_f32 as a float64 product and sum rounded once."""
+    cos_t = np.array(f32.COS_BITS, np.uint32).view(F32)
+    sin_t = np.array(f32.SIN_BITS, np.uint32).view(F32)
+    c, s_ = cos_t[theta_idx], sin_t[theta_idx]
+    rho = rho_idx.astype(F32) - F32(rho_offset)
+    m = np.maximum(np.abs(s_), np.abs(c))
+    vx, vy = (-s_) / m, c / m
+    cx, cy = F32(0.5) * F32(w - 1), F32(0.5) * F32(h - 1)
+    fx, fy = c * rho, s_ * rho
+    proj_x = fma_f32_np(fma_f32_np(-s_, rho, cy), c, (cx - fx) * (-s_))
+    proj_y = fma_f32_np(cy - fy, c, fma_f32_np(-c, rho, cx) * (-s_))
+    px, py = fma_f32_np(proj_x, -s_, fx), fma_f32_np(proj_y, c, fy)
+    xmaj = np.abs(s_) >= np.abs(c)
+    dirn = np.where(xmaj, vx, vy)
+    floor_a = np.floor(np.where(xmaj, px, py))
+    return dict(vx=vx, vy=vy, px=px, py=py, dirn=dirn, floor_a=floor_a,
+                xmaj=xmaj)
+
+
+def walk_t_model(g, col):
+    """The walk step of plane column col (col broadcast against the
+    peaks' [..., 1] scalars)."""
+    return ((F32(col) - F32(1)) - g["floor_a"]) * g["dirn"]
+
+
+def sample_model(g, t):
+    x = fma_f32_np(t, g["vx"], g["px"])
+    y = fma_f32_np(t, g["vy"], g["py"])
+    x0, y0 = np.floor(x), np.floor(y)
+    return x - x0, y - y0, x0.astype(np.int32) + 1, y0.astype(np.int32) + 1
+
+
+def row_threads(s):
+    """walk_segments.cu's row_threads: 4 columns a thread, 32 to 1024."""
+    return min(max(((s + 3) // 4 + 31) // 32 * 32, 32), 1024)
+
+
+def walk_geom_model(theta_idx, rho_idx, rho_offset, h, w, s):
+    """walk_geom_kernel: block (frame, peak), thread x columns 4x..4x+3
+    (one column where S % 4 != 0), striding by the block; r = yi on
+    x-major walks, xi on y-major ones; every column written once."""
+    g = {k: v.reshape(-1, 1) for k, v in peak_geom_model(
+        theta_idx, rho_idx, rho_offset, h, w).items()}
+    n = g["xmaj"].shape[0]
+    r = np.full((n, s), INT_MIN, np.int64)
+    cols = 4 if s % 4 == 0 else 1
+    threads = row_threads(s)
+    for base in range(0, s, threads * cols):
+        for j in range(cols):
+            c = base + np.arange(threads) * cols + j
+            c = c[c < s]
+            _, _, xi, yi = sample_model(g, walk_t_model(g, c[None, :]))
+            assert (r[:, c] == INT_MIN).all()
+            r[:, c] = np.where(g["xmaj"], yi, xi)
+    return (r.reshape(*theta_idx.shape, s).astype(np.int32),
+            g["xmaj"].reshape(theta_idx.shape))
+
+
+def shfl(x, d, up):
+    """__shfl_up_sync / __shfl_down_sync by d within warps of 32 along the
+    last axis; a lane with no source keeps its own value."""
+    xw = x.reshape(*x.shape[:-1], -1, 32)
+    out = xw.copy()
+    if up:
+        out[..., d:] = xw[..., :-d]
+    else:
+        out[..., :-d] = xw[..., d:]
+    return out.reshape(x.shape)
+
+
+def block_exclusive_max_model(x):
+    """[B, threads] -> the max over each block's earlier threads (K_NEG for
+    thread 0): warp inclusive scans by shuffles, warp 0's scan of the
+    warps' totals (K_NEG past the last warp), then each thread's exclusive
+    value, its warp's lane before it and the warps before."""
+    n_warps = x.shape[1] // 32
+    lane = np.arange(x.shape[1]) % 32
+    incl = x.copy()
+    for d in (1, 2, 4, 8, 16):
+        incl = np.where(lane >= d, np.maximum(incl, shfl(incl, d, True)),
+                        incl)
+    tot = np.full((x.shape[0], 32), K_NEG, np.int64)
+    tot[:, :n_warps] = incl[:, 31::32]
+    for d in (1, 2, 4, 8, 16):
+        tot = np.where(np.arange(32) >= d,
+                       np.maximum(tot, shfl(tot, d, True)), tot)
+    excl = np.where(lane == 0, K_NEG, shfl(incl, 1, True))
+    warp = np.arange(x.shape[1]) // 32
+    before = tot[:, np.maximum(warp - 1, 0)]
+    return np.where(warp > 0, np.maximum(excl, before), excl)
+
+
+def take_better_model(a, b):
+    """The larger len, the lower step among equals, on (len, step, start)
+    triples of arrays."""
+    better = (b[0] > a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    return tuple(np.where(better, y, x) for x, y in zip(a, b))
+
+
+def block_argmax_model(vals):
+    """walk_finish's block_argmax on [B, threads] triples: a shuffle-down
+    tree in each warp, lane 0's totals to shared memory, the same tree in
+    warp 0 over them (padded with (INT_MIN, INT_MAX, K_NEG)); thread 0's
+    triple."""
+    for d in (16, 8, 4, 2, 1):
+        vals = take_better_model(vals, tuple(shfl(v, d, False)
+                                             for v in vals))
+    n_warps = vals[0].shape[1] // 32
+    pads = (INT_MIN, INT_MAX, K_NEG)
+    tot = tuple(np.full((vals[0].shape[0], 32), p, np.int64) for p in pads)
+    for t_, v in zip(tot, vals):
+        t_[:, :n_warps] = v[:, ::32]
+    for d in (16, 8, 4, 2, 1):
+        tot = take_better_model(tot, tuple(shfl(v, d, False) for v in tot))
+    return tuple(t_[:, 0] for t_ in tot)
+
+
+def walk_finish_model(v, theta_idx, rho_idx, peak_ok, max_gap, rho_offset,
+                      n_steps, h, w, min_len):
+    """walk_finish_kernel, vectorised over the (frame, peak) blocks and
+    their threads: thread x takes walk steps x*per .. x*per + per - 1 (step
+    j is column S-1-j where dirn < 0), its on and new-run flags as bit
+    masks; the two block exclusive max-scans; each on step's run length;
+    the block argmax; thread 0's endpoints, zeros where not ok."""
+    t, k, s = v.shape
+    threads = row_threads(s)
+    per = -(-s // threads)
+    assert per <= 32
+    g = {k_: a.reshape(-1, 1) for k_, a in peak_geom_model(
+        theta_idx, rho_idx, rho_offset, h, w).items()}
+    n_blk = t * k
+    vv = v.reshape(n_blk, s)
+    gap_max = np.repeat(max_gap.astype(F32), k)[:, None]
+    half = F32(0.5) * F32(n_steps)
+    rev = g["dirn"] < 0
+    j0 = np.arange(threads)[None, :] * per
+    on = np.zeros((n_blk, threads), np.int64)
+    last_on = np.full((n_blk, threads), K_NEG, np.int64)
+    for i in range(per):
+        j = j0 + i
+        live = j < s
+        col = np.where(rev, s - 1 - j, j)
+        tt = walk_t_model(g, col)
+        fx, fy, xi, yi = sample_model(g, tt)
+        inp = ((xi >= 0) & (xi <= w) & (yi >= 0) & (yi <= h)
+               & (tt >= -half) & (tt < half) & live)
+        bits = np.take_along_axis(vv, np.clip(col, 0, s - 1), axis=1)
+        wx0, wy0 = F32(1) - fx, F32(1) - fy
+        w10, w01 = fx * wy0, wx0 * fy
+        least = F32(0.05)
+        p = (((bits & 1) != 0) & (wx0 * wy0 > least)
+             | ((bits & 2) != 0) & (np.where(g["xmaj"], w10, w01) > least)
+             | ((bits & 4) != 0) & (np.where(g["xmaj"], w01, w10) > least)
+             | ((bits & 8) != 0) & (fx * fy > least))
+        hit = p & inp
+        on |= hit.astype(np.int64) << i
+        last_on = np.where(hit, j, last_on)
+    prev = block_exclusive_max_model(last_on)
+    fresh = np.zeros_like(on)
+    last_new = np.full_like(last_on, K_NEG)
+    for i in range(per):
+        j = j0 + i
+        is_on = (on >> i & 1) == 1
+        new = is_on & ((j - prev - 1).astype(F32) > gap_max)
+        fresh |= new.astype(np.int64) << i
+        last_new = np.where(new, j, last_new)
+        prev = np.where(is_on, j, prev)
+    start = block_exclusive_max_model(last_new)
+    best = (np.full_like(on, INT_MIN), np.full_like(on, INT_MAX),
+            np.full_like(on, K_NEG))
+    for i in range(per):
+        j = j0 + i
+        start = np.where((fresh >> i & 1) == 1, j, start)
+        length = np.where((on >> i & 1) == 1, j - start, -1)
+        length = np.where(j < s, length, INT_MIN)
+        steps = np.broadcast_to(j, length.shape)
+        best = take_better_model(best, (length, steps, start))
+    best_len, best_step, best_start = block_argmax_model(best)
+    good = (best_len >= min_len) & peak_ok.reshape(-1)
+    g1 = {k_: a[:, 0] for k_, a in g.items()}
+
+    def endpoint(j):
+        j = np.clip(j, 0, s - 1)
+        tt = walk_t_model(g1, np.where(g1["dirn"] < 0, s - 1 - j, j))
+        ex = np.rint(fma_f32_np(tt, g1["vx"], g1["px"])).astype(np.int32)
+        ey = np.rint(fma_f32_np(tt, g1["vy"], g1["py"])).astype(np.int32)
+        return np.clip(ex, 0, w - 1), np.clip(ey, 0, h - 1)
+
+    lines = np.stack([*endpoint(best_start), *endpoint(best_step)], -1)
+    lines = np.where(good[:, None], lines, 0).astype(np.int32)
+    return lines.reshape(t, k, 4), good.reshape(t, k)
+
+
+def _walk_inputs(case, seed=SEED):
+    from metdetpy_tpu_torch.ops import hough, kernel_cases
+    c = kernel_cases.walk_case(case, "cpu", seed)
+    _, h, w = c.imgs01.shape
+    planes = hough.corner_planes(c.imgs01, c.s_dim)
+    r, xmaj = kernels.walk_geom_plain(c.theta_idx, c.rho_idx, c.rho_offset,
+                                      c.n_steps, h, w, c.s_dim)
+    return c, kernels.walk_pick(planes, r, xmaj)
+
+
+# (id, T, K, H, W, S, fill, offset) of kernel_cases.WALK_CASES' kinds, at
+# sizes the numpy models take in seconds: S of 128, 200 and 1024, portrait
+# frames, chunks of 1 to 8 frames
+WALK_MODEL_CASES = [
+    ("lines_s1024", 2, 8, 540, 960, 1024, "lines", 0),
+    ("lines_t1", 1, 24, 100, 127, 128, "lines", 0),
+    ("lines_t8", 8, 6, 60, 90, 128, "lines", 0),
+    ("s200", 2, 16, 150, 199, 200, "lines", 0),
+    ("portrait", 3, 16, 300, 120, 384, "lines", 0),
+    ("crafted", 2, 64, 37, 150, 256, "crafted", 0),
+    ("crafted_portrait", 3, 64, 150, 37, 256, "crafted", 0),
+    ("empty", 2, 16, 37, 150, 256, "empty", 0),
+    ("dense", 5, 16, 64, 96, 128, "dense", 0),
+]
+
+
+@pytest.mark.parametrize("case", WALK_MODEL_CASES,
+                         ids=[c[0] for c in WALK_MODEL_CASES])
+def test_walk_finish_model_equals_plain(case):
+    """walk_finish's walk-order index map, bit masks, block max-scans over
+    the warps' totals and lowest-step argmax give walk_finish_plain's
+    lines and ok bit for bit: thetas at 0, 45, 90 and 135 degrees, walks in
+    both directions, rho at both ends, peaks not ok, empty and dense
+    frames, max_gap 0 and 1e7, S not a multiple of 128."""
+    c, v = _walk_inputs(case)
+    _, h, w = c.imgs01.shape
+    args = (c.theta_idx, c.rho_idx, c.peak_ok, c.gaps, c.rho_offset,
+            c.n_steps, h, w, c.min_len)
+    want_lines, want_ok = kernels.walk_finish_plain(v, *args)
+    lines, ok = walk_finish_model(v.numpy(), *[
+        a.numpy() if isinstance(a, torch.Tensor) else a for a in args])
+    np.testing.assert_array_equal(ok, want_ok.numpy())
+    np.testing.assert_array_equal(lines, want_lines.numpy())
+    if case[6] in ("lines", "crafted"):
+        assert want_ok.any()
+
+
+@pytest.mark.parametrize("dirn", [1, -1])
+@pytest.mark.parametrize("max_gap", [0.0, 2.0, 1e7])
+def test_walk_finish_model_on_random_picks(nrng, dirn, max_gap):
+    """Random picks (every run length and gap) on walks of one direction:
+    the scans and the argmax over several warps and ragged last threads
+    (S = 200, 1000, 1024), against walk_finish_plain."""
+    for s, h, w in ((200, 150, 199), (1000, 540, 960), (1024, 540, 960)):
+        n = 40
+        # dirn -1: x-major walks (45..135 degrees); +1: y-major, theta < 45
+        th = nrng.integers(46, 135, (1, n)) if dirn < 0 else \
+            nrng.integers(0, 45, (1, n))
+        rh = nrng.integers(w + h - 60, w + h + 60, (1, n))
+        v = (nrng.random((1, n, s)) < nrng.uniform(0.2, 0.95, (1, n, 1))
+             ) * nrng.integers(1, 16, (1, n, s))
+        ok = nrng.random((1, n)) < 0.9
+        gaps = np.array([max_gap], F32)
+        g = peak_geom_model(th, rh, w + h, h, w)
+        assert (np.sign(g["dirn"]) == dirn).all()
+        n_steps = -(-(max(h, w) + 4) // 128) * 128
+        args = [torch.from_numpy(a) for a in (v.astype(np.int32), th, rh, ok,
+                                              gaps)]
+        want = kernels.walk_finish_plain(*args, w + h, n_steps, h, w, 10)
+        got = walk_finish_model(v.astype(np.int32), th, rh, ok, gaps, w + h,
+                                n_steps, h, w, 10)
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        assert want[1].any()
+
+
+@pytest.mark.parametrize("case", WALK_MODEL_CASES,
+                         ids=[c[0] for c in WALK_MODEL_CASES])
+def test_walk_geom_model_equals_plain(case):
+    """walk_geom's column map and the shared peak geometry (one function
+    of both kernels) give hough.walk_geom's r and xmaj bit for bit."""
+    from metdetpy_tpu_torch.ops import kernel_cases
+    c = kernel_cases.walk_case(case, "cpu", SEED)
+    _, h, w = c.imgs01.shape
+    want_r, want_x = kernels.walk_geom_plain(
+        c.theta_idx, c.rho_idx, c.rho_offset, c.n_steps, h, w, c.s_dim)
+    r, xmaj = walk_geom_model(c.theta_idx.numpy(), c.rho_idx.numpy(),
+                              c.rho_offset, h, w, c.s_dim)
+    np.testing.assert_array_equal(xmaj, want_x.numpy())
+    np.testing.assert_array_equal(r, want_r.numpy())
+
+
+def test_peak_geom_model_equals_walk_geom_scalars(nrng):
+    """Every theta and rho at both ends and between: peak_geom's px, py,
+    vx, vy, dirn and xmaj equal hough.walk_geom's bit for bit."""
+    from metdetpy_tpu_torch.ops import hough
+    for h, w in ((540, 960), (37, 150), (300, 120)):
+        n_rho = -(-(2 * (w + h) + 1) // 128) * 128
+        th = np.repeat(np.arange(180), 5)[None]
+        rh = np.tile([0, 1, w + h, n_rho - 2, n_rho - 1], 180)[None]
+        rh = np.concatenate([rh, nrng.integers(0, n_rho, rh.shape)])
+        th = np.concatenate([th, th])
+        want = hough.walk_geom(torch.from_numpy(th), torch.from_numpy(rh),
+                               w + h, 1024, h, w, 128)
+        got = peak_geom_model(th, rh, w + h, h, w)
+        for name in ("px", "py", "vx", "vy", "dirn", "xmaj"):
+            np.testing.assert_array_equal(got[name],
+                                          getattr(want, name).numpy(), name)
+
+
+@pytest.mark.parametrize("t,h,w,s,vec", [
+    (1, 37, 150, 256, True), (2, 100, 127, 128, True),
+    (1, 150, 199, 200, True), (2, 64, 63, 128, True), (1, 1, 1, 64, True),
+    (1, 37, 150, 256, False), (1, 150, 199, 200, False),
+    (3, 130, 60, 131, False), (1, 1, 1, 3, False)])
+def test_corner_planes_model_equals_plain(nrng, t, h, w, s, vec):
+    """corner_planes' 65 x 65 tile and its transposed reads, with bits 1
+    and 2 swapped, write every byte of both planes once and give
+    hough.corner_planes, zero padding and ragged last tiles included (the
+    byte path, which S % 4 != 0 takes, and the word path)."""
+    imgs = (nrng.random((t, h, w)) < 0.3).astype(np.uint8)
+    imgs[0, 0, :] = 1
+    imgs[-1, -1, -1] = 1
+    want = kernels.corner_planes_plain(torch.from_numpy(imgs), s).numpy()
+    np.testing.assert_array_equal(corner_planes_model(imgs, s, vec), want)
+    assert (want[:, 1] == np.swapaxes(
+        (want[:, 0] & 9) | (want[:, 0] & 2) << 1 | (want[:, 0] & 4) >> 1,
+        1, 2)).all()
+
+
+def test_block_scans_equal_running_maxima(nrng):
+    """The block exclusive max-scan and the block argmax equal a running
+    maximum and np.argmax (first of equals) for 1 to 32 warps."""
+    for n_warps in (1, 2, 7, 8, 32):
+        x = nrng.integers(-5, 50, (6, 32 * n_warps))
+        x[0] = K_NEG
+        x[1] = 7
+        run = np.maximum.accumulate(x, axis=1)
+        want = np.concatenate([np.full((6, 1), K_NEG), run[:, :-1]], axis=1)
+        np.testing.assert_array_equal(block_exclusive_max_model(x), want)
+        steps = np.broadcast_to(np.arange(x.shape[1]), x.shape)
+        got = block_argmax_model((x, steps.copy(), -x))
+        np.testing.assert_array_equal(got[0], x.max(axis=1))
+        np.testing.assert_array_equal(got[1], x.argmax(axis=1))
+        np.testing.assert_array_equal(got[2], -x.max(axis=1))
+
+
 def test_kernel_case_lists_run_on_the_cpu():
     """Every ragged case of ops/kernel_cases.py builds its inputs (with the
     storage offset asked for) and goes through the wrappers' CPU path; the
@@ -690,3 +1088,19 @@ def test_kernel_case_lists_run_on_the_cpu():
         assert votes.is_contiguous() and votes.storage_offset() * 4 == offset
         is_peak, count = kernels.peak_ladder(votes, threshold, cuts)
         assert count.sum(dim=1).tolist() == is_peak.sum(dim=1).tolist()
+    for case in C.WALK_CASES:
+        name, t, k, h, w, s, fill, offset = case
+        small = (name, min(t, 2), min(k, 8), min(h, 300), min(w, 300),
+                 min(s, 384), fill, offset)
+        c = C.walk_case(small, "cpu", SEED)
+        assert c.theta_idx.is_contiguous()
+        assert c.theta_idx.storage_offset() * 8 == offset
+        _, h, w = c.imgs01.shape
+        planes = kernels.corner_planes(c.imgs01, c.s_dim)
+        r, xmaj = kernels.walk_geom(c.theta_idx, c.rho_idx, c.rho_offset,
+                                    c.n_steps, h, w, c.s_dim)
+        v = kernels.walk_pick(planes, r, xmaj)
+        lines, ok = kernels.walk_finish(v, c.theta_idx, c.rho_idx, c.peak_ok,
+                                        c.gaps, c.rho_offset, c.n_steps, h, w,
+                                        c.min_len)
+        assert not (ok & ~c.peak_ok).any() and not lines[~ok].any()

@@ -117,7 +117,8 @@ def test_port_pyz_holds_no_jax_package_and_no_build(pyz_dir, tool):
     assert not [n for n in names if n.endswith((".so", ".o", ".pyc"))
                 or "/csrc/build/" in n or "__pycache__" in n]
     for src in ("window_diff.cu", "median_binarize_close.cu",
-                "hough_vote.cu", "walk_pick.cu", "cp_async.cuh"):
+                "hough_vote.cu", "walk_pick.cu", "peak_ladder.cu",
+                "walk_segments.cu", "cp_async.cuh"):
         assert f"{PORT}/csrc/{src}" in names
 
 

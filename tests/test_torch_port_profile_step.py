@@ -287,7 +287,8 @@ def test_same_bits_tells_apart_what_equality_does_not():
 
 
 EXPECTED = {"block": ["step", "window_diff", "median_binarize_close",
-                      "rolling_sum_u32", "window_noise_std", "rest"],
+                      "rolling_sum_u32", "window_noise_std", "segment_walk",
+                      "rest"],
             "dense": ["hough_lines_batch", "compaction", "hough_vote",
                       "find_peaks", "segment_walk"],
             "split": ["chain_only", "step", "hough"]}

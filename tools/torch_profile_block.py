@@ -13,7 +13,7 @@ meteor, made from a seed, on one GPU. After two warm-up blocks it reports:
 - the same with the host->device upload of each block from numpy (what
   ``detect_video`` does);
 - under ``torch.profiler``: device time per kernel name, summed over the
-  profiled blocks, the four hand-written kernels marked, the device-busy
+  profiled blocks, the hand-written kernels marked, the device-busy
   total and the idle share of the wall time;
 
 as one JSON line, beside the card's name and power limit. The full
@@ -51,10 +51,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 W, H, FPS, T_BLOCK = 960, 540, 25.0, 64
 SEED = 20261016
-KERNEL_SYMBOLS = {"window_diff_kernel": "window_diff",
-                  "median_binarize_close_kernel": "median_binarize_close",
-                  "hough_vote_kernel": "hough_vote",
-                  "walk_pick_kernel": "walk_pick"}
+KERNEL_SYMBOLS = {f"{name}_kernel": name for name in (
+    "window_diff", "median_binarize_close", "hough_vote", "walk_pick",
+    "peak_ladder", "corner_planes", "walk_geom", "walk_finish")}
 
 
 def card_line() -> str:
